@@ -1,0 +1,1737 @@
+"""MLCEngine — the serving engine, in PyTorch (port of
+``src/repro/core/engine.py``, paged backend only).
+
+Token-budget continuous batching: every engine step executes ONE
+``Scheduler.plan_step`` — a mixed plan of decode tokens (one per running
+sequence) plus chunked prefill work filling the rest of the per-step
+token budget — and the whole plan dispatches as ONE fused logits→token
+step (``_step_fused`` -> ``PagedEngineBackend.run_step``): decode tokens
+are length-1 rows and prefill chunks multi-token rows of one packed
+ragged layout, attention is one ragged kernel launch per layer, and
+batched sampling chains on the device in the same step — only sampled
+token ids cross back to the host (``stats()["runner"]["host_logit_rows"]
+== 0``).  At ``pipeline_depth=2`` (the default) consecutive steps
+PIPELINE on PyTorch's asynchronous CUDA stream: step N is enqueued
+without blocking, and while the device computes, the host drains step
+N-1's handle (token materialization, detok/streaming/finish detection
+one step behind) and plans step N+1 — decode inputs chain device-to-
+device from N's on-device token array.  A sequence that finishes at
+step N already has a speculative token in flight at N+1; the drain
+rewinds that one position, so seeded runs are bit-identical to
+``pipeline_depth=1``.  Long prompts stream chunk by chunk across steps
+(``_Seq.prefill_ids``/``prefill_pos``), admission is prefix-cache-aware,
+and preemption mid-prefill publishes the completed chunks so the
+re-queued request resumes from its cursor.
+
+Request lifecycle: one request owns ``n`` choice sequences; the prompt
+is prefilled ONCE and its KV pages are copy-on-write forked into the
+sibling choices, each with its own sampler (seeded ``seed + index``),
+grammar matcher, and detokenizer.  ``tools``/``tool_choice`` constrain
+decoding to a tool-call JSON via the grammar engine, ``logprobs``
+records per-token log-probabilities, and ``abort(request_id)`` frees the
+request's slots and pages mid-flight.
+
+The engine is synchronous-core + thread-loop: ``chat_completions_create``
+enqueues a request and returns an iterator over chunks; a single loop
+thread steps all models while any request is live.  The dense backend,
+vision inputs, and the worker/router tier are later roadmap items
+(ROADMAP A4, A5).
+"""
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+import uuid
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Union
+
+import numpy as np
+
+from repro_torch.core import api
+from repro_torch.core.paged_cache import OutOfPages
+from repro_torch.core.paged_runner import PagedEngineBackend, paged_supported
+from repro_torch.core.sampler import RequestSampler, SamplingParamsBatch
+from repro_torch.core.scheduler import AdmissionInfo, Scheduler
+from repro_torch.core.tool_stream import ToolCallStreamer
+from repro_torch.grammar import (GrammarMatcher, parse_gbnf, schema_to_gbnf,
+                           tools_to_gbnf)
+from repro_torch.grammar.gbnf import JSON_GBNF
+from repro_torch.tokenizer import ByteBPETokenizer, DetokStreamer
+
+_SENTINEL = object()
+
+
+def _prompt_lookup(ctx: List[int], k: int, max_ngram: int = 3) -> List[int]:
+    """Draft up to ``k`` tokens by n-gram prompt lookup against the
+    sequence's OWN context (prompt + generated + pending token): find
+    an earlier occurrence of the trailing n-gram — longest ``n`` wins,
+    then the LATEST occurrence — and propose the tokens that followed
+    it.  Pure position arithmetic over host ints, deterministic, no
+    model involved; wrong guesses only cost rejected verify rows."""
+    L = len(ctx)
+    if k <= 0 or L < 2:
+        return []
+    for n in range(min(max_ngram, L - 1), 0, -1):
+        tail = ctx[L - n:]
+        for j in range(L - n - 1, -1, -1):
+            if ctx[j:j + n] == tail:
+                return ctx[j + n:j + n + k]
+    return []
+
+
+class _GrammarDeadEnd(Exception):
+    """A sampling row's grammar matcher allows NO token (the host
+    sampler's loud "grammar mask excludes every token" case) — carries
+    the affected requests so the step can fail them individually."""
+
+    def __init__(self, requests):
+        super().__init__("grammar mask excludes every token")
+        self.requests = requests
+
+
+@dataclass
+class _Seq:
+    """One choice (``choices[index]``) of a request: its own sampler,
+    grammar matcher, detokenizer, and decode slot.
+
+    A sequence admitted on a chunked backend starts in a PREFILLING
+    state: ``prefill_ids`` holds the tokens its KV must cover (prompt +
+    any re-prefixed generated tokens) and ``prefill_pos`` is the chunk
+    cursor — how many of them are already in pages (including a
+    prefix-cache hit).  The scheduler feeds the remainder through
+    ``prefill_chunk`` across steps; when the cursor reaches the end the
+    sequence samples its first token and decodes.  A sibling choice of
+    a fresh ``n>1`` request instead waits with ``fork_of`` set and is
+    CoW-forked from that sequence when its prefill completes."""
+    index: int
+    sampler: RequestSampler
+    streamer: DetokStreamer
+    matcher: Optional[GrammarMatcher] = None
+    request: "_Request" = None
+    slot: int = -1
+    pos: int = 0                      # next write position
+    generated: List[int] = field(default_factory=list)
+    text: str = ""
+    emitted: int = 0                  # chars already streamed
+    finish_reason: Optional[str] = None
+    next_token: Optional[int] = None
+    role_sent: bool = False           # assistant-role chunk already emitted
+    tool_calls: Optional[List[api.ToolCall]] = None
+    logprobs: List[api.TokenLogprob] = field(default_factory=list)
+    lp_emitted: int = 0               # logprob entries already streamed
+    t_done: float = 0.0
+    prefill_ids: Optional[List[int]] = None   # tokens the KV must cover
+    prefill_pos: int = 0                      # chunk cursor (tokens in KV)
+    fork_of: Optional["_Seq"] = None          # CoW-fork source sibling
+    tool_stream: Optional[ToolCallStreamer] = None  # delta.tool_calls
+    # -- pipelined-loop state (engine-loop-thread confined) ----------
+    #: rows this sequence has in the dispatched-but-undrained step
+    n_inflight: int = 0
+    #: sampling-row index of this sequence's pending on-device token in
+    #: ``inflight_of`` (the next decode gathers it device-to-device)
+    inflight_src: Optional[int] = None
+    inflight_of: Optional["_Inflight"] = None
+    #: finish happened while a row was still in flight: slot/page
+    #: release is deferred to that step's drain (which rewinds the
+    #: speculative token first)
+    pending_release: bool = False
+    release_publish: bool = True
+
+    @property
+    def prefill_remaining(self) -> int:
+        """Prompt tokens not yet in KV (0 once decoding / fork-pending)."""
+        if self.prefill_ids is None:
+            return 0
+        return len(self.prefill_ids) - self.prefill_pos
+
+
+@dataclass
+class _Request:
+    """A chat-completion request owning ``n`` choice sequences."""
+    req: api.ChatCompletionRequest
+    rid: str
+    model: str
+    prompt_ids: List[int]
+    out: "queue.Queue"
+    seqs: List[_Seq] = field(default_factory=list)
+    tool_grammar: bool = False        # decode constrained to a tool call
+    aborted: bool = False
+    t_submit: float = field(default_factory=time.time)
+    t_admit: float = 0.0              # first admission into a slot
+    t_first: float = 0.0
+    prefill_s: float = 0.0
+    cached_tokens: int = 0            # prompt tokens served from prefix cache
+    fits_key: Optional[tuple] = None  # memo: fits_ever vetted for this shape
+
+    def pending(self) -> List[_Seq]:
+        return [s for s in self.seqs if s.finish_reason is None]
+
+    def done(self) -> bool:
+        return all(s.finish_reason is not None for s in self.seqs)
+
+
+@dataclass
+class _Inflight:
+    """One dispatched-but-undrained fused step: the runner's on-device
+    :class:`~repro_torch.core.paged_runner.StepHandle` plus the host-side
+    row/consumer bookkeeping needed to consume it one step later."""
+    handle: object                    # paged_runner.StepHandle
+    #: (seq, tokens, kind, completes) as dispatched — ``completes`` is
+    #: captured BEFORE the chunk cursor advanced: by drain time the
+    #: next chunk may already be in flight, so it cannot be recomputed
+    rows: List[tuple]
+    consumers: List[_Seq]             # sampling-row order
+
+
+@dataclass
+class _LoadedModel:
+    runner: PagedEngineBackend
+    tokenizer: ByteBPETokenizer
+    scheduler: Scheduler
+    backend: str = "paged"
+    token_budget: int = 32            # model-forward tokens per step
+    prefill_chunk_size: int = 16      # chunked-prefill granularity (paged)
+    exec_steps: int = 0               # engine steps that dispatched work
+    # -- pipelined loop (all loop-thread confined) -------------------
+    #: fused steps kept in flight: 2 overlaps host planning/consumption
+    #: with device execution, 1 preserves the strictly sequential loop
+    pipeline_depth: int = 1
+    inflight: Optional[_Inflight] = None      # the undrained step
+    next_plan: object = None          # depth-2: plan built behind device
+    inflight_max: int = 0             # max concurrent steps observed
+    gap_s: float = 0.0                # device idle between dispatches
+    t_last_ready: float = 0.0         # monotonic stamp of last drain
+    host_s: float = 0.0               # host time not hidden by device
+    # -- speculative decoding (loop-thread confined counters) --------
+    speculation: str = "off"          # "off" | "prompt_lookup"
+    draft_k: int = 0                  # draft tokens per verify window
+    drafted: int = 0                  # draft tokens dispatched
+    accepted: int = 0                 # draft tokens accepted (emitted)
+
+
+class EngineCrashed(RuntimeError):
+    """The engine loop thread died (unexpected exception, or shutdown
+    with requests still in flight): every live request is failed with
+    this instead of hanging toward ``STALL_TIMEOUT_S``.  Typed so the
+    worker boundary and the router can treat it as 'replica dead'."""
+
+
+class MLCEngine:
+    """Backend engine.  See ServiceWorkerMLCEngine for the frontend."""
+
+    #: seconds of engine-wide inactivity before a waiting caller gives up
+    STALL_TIMEOUT_S = 300.0
+
+    # lint (repro.analysis pass 1): request bookkeeping, the loop-thread
+    # slot, and the progress timestamp are lock-guarded; ``models`` is
+    # deliberately NOT listed — it is read-mostly and ``stats`` documents
+    # its racy reads.  ``_retire`` is called with the lock already held.
+    _GUARDED_BY = {
+        "_lock": ("_requests", "_preaborted", "_retired", "_thread",
+                  "_t_activity"),
+    }
+    _ASSUMES_HELD = {"_lock": ("_retire",)}
+
+    def __init__(self):
+        self.models: Dict[str, _LoadedModel] = {}
+        self._requests: Dict[str, _Request] = {}      # live, by request id
+        #: aborted before their submission landed, oldest-first (LRU)
+        self._preaborted: "OrderedDict[str, None]" = OrderedDict()
+        #: recently retired request ids (bounded): a LATE abort of one of
+        #: these is a no-op, not a sticky pre-abort — otherwise a user's
+        #: slow "stop" click would cancel the next request reusing the id
+        self._retired: "OrderedDict[str, None]" = OrderedDict()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._shutdown = False
+        self._t_activity = time.time()    # last time any step made progress
+
+    # -- model management ----------------------------------------------
+    def load_model(self, name: str, cfg, *, params=None, tokenizer=None,
+                   max_slots: int = 4, max_context: int = 256,
+                   seed: int = 0, quantize: bool = False,
+                   artifact_cache=None, backend: str = "dense",
+                   page_size: int = 16, num_pages: Optional[int] = None,
+                   enable_prefix_cache: bool = True,
+                   prefill_chunk_size: int = 16,
+                   token_budget: Optional[int] = None,
+                   max_cached_pages: Optional[int] = None,
+                   max_cached_bytes: Optional[int] = None,
+                   pipeline_depth: Optional[int] = None,
+                   warmup: bool = False,
+                   speculation: str = "off", draft_k: int = 4,
+                   kv_dtype: str = "f32", weight_quant: str = "off",
+                   device=None):
+        """Load a model under ``name`` for ``chat_completions_create``.
+
+        ``backend="paged"`` serves every request through the paged KV
+        cache with radix prefix caching, CoW ``n``-way sampling, and
+        fused ragged steps (one attention kernel launch per layer per
+        engine step); it is the only backend of the port so far:
+        ``backend="dense"`` (the reference's default, kept in the
+        signature), ``quantize=True``, ``kv_dtype="int8"`` and
+        ``weight_quant="w4a16"`` raise ``NotImplementedError`` naming
+        their roadmap item.  It requires a pure-GQA decoder
+        (``paged_supported``).
+
+        ``device``
+            Where the weights, page pools and every step run: ``None``
+            means the current CUDA device (and raises when there is
+            none); pass ``"cpu"`` for the plain PyTorch path on the CPU.
+        ``params``
+            The port's per-layer param dict
+            (``repro_torch.models.params``; ``repro_torch.weights.
+            from_jax_params`` converts the JAX package's tree); ``None``
+            draws random weights from ``seed`` on ``device``.
+
+        Serving knobs (all token counts, not bytes):
+
+        ``token_budget``
+            Model-forward tokens per engine step — decode tokens plus
+            prefill-chunk tokens.  The default,
+            ``max_slots + prefill_chunk_size``, always decodes every
+            running sequence and
+            advances one prefill chunk per step.  Raising it speeds
+            long-prompt prefill at the cost of inter-token latency for
+            running streams; decode tokens are planned even when they
+            alone exceed the budget, so streams never starve.
+        ``prefill_chunk_size``
+            Granularity (tokens) at which a prompt's uncached suffix is
+            chunked across steps.  A long prompt admits once and then
+            interleaves with running decoders — TTFT of other requests
+            stays proportional to budget share, not to the newcomer's
+            prompt length.
+        ``max_cached_pages``
+            Cap (pages of ``page_size`` tokens each) on the radix
+            prefix cache, enforced with proactive LRU eviction on
+            insert; ``None`` means bounded only by the page pool.
+        ``max_cached_bytes``
+            The same cap expressed in BYTES of KV payload — divided by
+            this model's per-page byte cost, computed from the actual
+            pool dtypes (``2 * n_layers * page_size * n_kv_heads *
+            (head_dim * kv_elem_bytes + scale_bytes)``: bf16 vectors by
+            default; int8 vectors plus a bf16 scale per (token,
+            kv-head) under ``kv_dtype="int8"``) — so one byte budget
+            can govern several loaded models of different shapes and
+            precisions.  When both caps are set the tighter one wins.
+        ``kv_dtype``
+            ``"f32"`` (default): bf16 KV pools.  ``"int8"`` is not ported
+            yet (ROADMAP A1).
+        ``weight_quant``
+            ``"off"`` (default) serves bf16 weights.  ``"w4a16"`` is not
+            ported yet (ROADMAP A3).
+        ``page_size`` / ``num_pages``
+            Tokens per physical KV page, and the pool size (default:
+            ``(max_slots + 2) * ceil(max_context / page_size)`` — every
+            slot at full context plus cache headroom).
+        ``pipeline_depth``
+            Fused steps kept in flight.  The default (2) enqueues step N
+            and then, while the device computes, drains step N-1 (token
+            materialization, detok, streaming, finish detection) and
+            plans step N+1 — decode inputs chain device-to-device, so
+            the host never blocks on a token value to dispatch.  ``1``
+            restores the strictly sequential loop.  Seeded runs are
+            token-for-token identical across depths.
+        ``warmup``
+            Run the common ragged step shapes once at load on all-pad
+            inputs (kernel build, allocator growth) so first-use costs
+            stop landing on TTFT; the shape count lands in
+            ``stats()["runner"]["warmup_compiles"]``.
+        ``speculation`` / ``draft_k``
+            ``"prompt_lookup"`` turns on speculative
+            decoding: each eligible decode row drafts up to ``draft_k``
+            tokens by n-gram lookup against the sequence's own context
+            (falling back to the radix prefix tree), verifies the whole
+            window inside the SAME fused step (one attention kernel
+            call, one sampling call), and accepts the longest prefix
+            whose positions resampled exactly their drafts — rejected
+            positions rewind KV (``rewinds`` stat).  Counter-based
+            Gumbel keys make seeded spec-on runs token-for-token
+            identical to ``"off"``.  Grammar-constrained and
+            penalty-bearing sequences never draft.  ``"off"``
+            (default) disables drafting.
+
+        Failure modes: a prompt that cannot fit the page pool even
+        alone fails its request with ``RuntimeError`` instead of
+        livelocking; transient pool pressure raises
+        :class:`repro_torch.core.paged_cache.OutOfPages` internally and is
+        absorbed by preemption (the victim republishes its progress and
+        resumes).  Callers blocked on a stalled engine get a
+        ``TimeoutError`` naming the request id after
+        ``STALL_TIMEOUT_S`` (300 s) without progress."""
+        if tokenizer is None:
+            tokenizer = ByteBPETokenizer.train(
+                ["hello world this is a tiny corpus for the demo engine "
+                 '{"json": [1, 2.5, true], "key": "value"} '] * 2,
+                vocab_size=min(cfg.vocab_size, 512))
+        assert tokenizer.vocab_size <= cfg.vocab_size, \
+            (tokenizer.vocab_size, cfg.vocab_size)
+        if backend != "paged":
+            raise NotImplementedError(
+                f"backend={backend!r}: the port serves backend='paged' only "
+                "(the dense backend is ROADMAP A4)")
+        if quantize:
+            raise NotImplementedError(
+                "quantize=True belongs to the dense backend: ROADMAP A4")
+        if artifact_cache is not None:
+            raise NotImplementedError(
+                "artifact_cache belongs to the dense backend: ROADMAP A4")
+        assert paged_supported(cfg), \
+            f"{cfg.name}: paged backend needs a pure-GQA decoder"
+        runner = PagedEngineBackend(
+            cfg, params, max_slots=max_slots, max_context=max_context,
+            page_size=page_size, num_pages=num_pages, seed=seed,
+            enable_prefix_cache=enable_prefix_cache,
+            chunk_size=prefill_chunk_size,
+            max_cached_pages=max_cached_pages,
+            max_cached_bytes=max_cached_bytes,
+            kv_dtype=kv_dtype, weight_quant=weight_quant, device=device)
+        scheduler = Scheduler(max_slots=max_slots,
+                              max_context=max_context,
+                              page_manager=runner.pm)
+        default_budget = max_slots + prefill_chunk_size
+        if token_budget is None:
+            token_budget = default_budget
+        assert token_budget >= 1, token_budget
+        if pipeline_depth is None:
+            pipeline_depth = 2
+        assert pipeline_depth in (1, 2), pipeline_depth
+        assert speculation in ("off", "prompt_lookup"), speculation
+        assert draft_k >= 1, draft_k
+        lm = _LoadedModel(
+            runner=runner, tokenizer=tokenizer, scheduler=scheduler,
+            backend=backend, token_budget=token_budget,
+            prefill_chunk_size=prefill_chunk_size,
+            pipeline_depth=pipeline_depth, speculation=speculation,
+            draft_k=(draft_k if speculation != "off" else 0))
+        if warmup:
+            runner.warmup(tokenizer.vocab_size, draft_k=lm.draft_k)
+        with self._lock:
+            # publish under the lock, like unload_model pops under it:
+            # the loop thread snapshots ``models`` while holding it
+            self.models[name] = lm
+
+    def unload_model(self, name: str):
+        with self._lock:
+            self.models.pop(name, None)
+
+    # -- public API ------------------------------------------------------
+    def chat_completions_create(
+            self, request: Union[api.ChatCompletionRequest, dict],
+            request_id: Optional[str] = None):
+        if isinstance(request, dict):
+            request = api.ChatCompletionRequest.from_dict(request)
+        r = self._make_request(request, request_id)
+        with self._lock:
+            # an abort posted concurrently with submission (the worker
+            # boundary's non-streaming cancel) may have arrived first —
+            # honour it instead of losing it to the race
+            if r.rid in self._preaborted:
+                self._preaborted.pop(r.rid, None)
+                r.aborted = True
+            self.models[request.model].scheduler.enqueue(r)
+            self._requests[r.rid] = r
+            self._t_activity = time.time()
+        self._ensure_loop()
+        self._wake.set()
+        if request.stream:
+            return self._iter_chunks(r)
+        return self._collect(r)
+
+    def abort(self, request_id: str) -> bool:
+        """Cancel an in-flight request: its unfinished choices finish
+        with ``finish_reason="abort"`` and every slot/page they hold is
+        freed.  Returns False if the id is not currently live — the
+        abort is then remembered, so a ``chat_completions_create``
+        racing this call with the same id starts cancelled (the worker
+        boundary's non-streaming cancel depends on this).  Closing a
+        streaming iterator calls this implicitly — a browser tab's
+        "stop generating" actually frees resources."""
+        with self._lock:
+            r = self._requests.get(request_id)
+            if r is None:
+                if request_id in self._retired:
+                    return False           # already finished: nothing to do
+                self._preaborted[request_id] = None
+                while len(self._preaborted) > 4096:
+                    # ids that never arrive must not pool; evicting the
+                    # STALEST keeps a just-raced abort intact
+                    self._preaborted.popitem(last=False)
+                return False
+            r.aborted = True
+        self._wake.set()
+        return True
+
+    # -- request setup ----------------------------------------------------
+    def _make_request(self, req: api.ChatCompletionRequest,
+                      request_id: Optional[str] = None) -> _Request:
+        if req.model not in self.models:
+            raise KeyError(f"model {req.model!r} not loaded")
+        lm = self.models[req.model]
+        tok = lm.tokenizer
+        if req.n < 1:
+            raise ValueError(f"n must be >= 1, got {req.n}")
+        if req.n > lm.scheduler.max_slots:
+            raise ValueError(
+                f"n={req.n} exceeds max_slots={lm.scheduler.max_slots}: "
+                "the choice set could never be admitted all-or-nothing")
+        prompt = tok.apply_chat_template([m.__dict__ for m in req.messages])
+        ids = tok.encode(prompt)
+        if req.image_embeds:
+            raise ValueError(
+                "the paged backend does not support image inputs (vision "
+                "frontends are ROADMAP A6)")
+        max_prompt = lm.runner.max_context - max(1, min(req.max_tokens, 16))
+        ids = ids[-max_prompt:]
+        # grammar: a forced tool call takes precedence over response_format
+        gbnf = None
+        tool_grammar = False
+        if req.tools and req.tool_choice != "none":
+            forced = None
+            if isinstance(req.tool_choice, dict):
+                forced = (req.tool_choice.get("function") or {}).get("name")
+                if not forced:
+                    raise ValueError(
+                        "tool_choice object must name a function")
+            if forced is not None or req.tool_choice == "required":
+                gbnf = tools_to_gbnf(req.tools, only=forced)
+                tool_grammar = True
+        if gbnf is None:
+            rf = req.response_format
+            if rf.type == "json_object":
+                gbnf = JSON_GBNF
+            elif rf.type == "json_schema":
+                gbnf = schema_to_gbnf(rf.json_schema or {})
+            elif rf.type == "grammar":
+                gbnf = rf.grammar or ""
+        grammar = parse_gbnf(gbnf) if gbnf is not None else None
+        r = _Request(req=req, rid=request_id or api.new_request_id(),
+                     model=req.model, prompt_ids=ids, out=queue.Queue(),
+                     tool_grammar=tool_grammar)
+        for i in range(req.n):
+            seq = _Seq(
+                index=i,
+                sampler=RequestSampler(
+                    temperature=req.temperature, top_p=req.top_p,
+                    top_k=req.top_k, min_p=req.min_p,
+                    typical_p=req.typical_p,
+                    frequency_penalty=req.frequency_penalty,
+                    presence_penalty=req.presence_penalty,
+                    repetition_penalty=req.repetition_penalty,
+                    logit_bias=req.logit_bias,
+                    seed=None if req.seed is None else req.seed + i),
+                matcher=(GrammarMatcher(grammar, tok)
+                         if grammar is not None else None),
+                streamer=DetokStreamer(tok),
+                tool_stream=(ToolCallStreamer()
+                             if tool_grammar and req.stream else None))
+            seq.request = r
+            r.seqs.append(seq)
+        return r
+
+    # -- loop --------------------------------------------------------------
+    def _ensure_loop(self):
+        # atomic check-and-spawn: concurrent first requests must not race
+        # a second loop thread into existence — the steps update the page
+        # pools in place, so two steppers corrupt each other
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._loop,
+                                                name="repro-torch-engine-loop",
+                                                daemon=True)
+                self._thread.start()
+
+    def _loop(self):
+        try:
+            idle_since = time.time()
+            while not self._shutdown:
+                busy = self.step()
+                if busy:
+                    idle_since = time.time()
+                else:
+                    if time.time() - idle_since > 5.0:
+                        # retire — but re-check for work under the lock
+                        # so a request enqueued this instant is not
+                        # stranded
+                        with self._lock:
+                            if any(lm.scheduler.waiting
+                                   or lm.scheduler.running
+                                   for lm in self.models.values()):
+                                idle_since = time.time()
+                                continue
+                            self._thread = None
+                            return
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        except BaseException as e:
+            # step() already contains the per-batch failure handling; an
+            # exception escaping to here means the loop itself is broken.
+            # Fail everything live with a typed error — callers must
+            # never ride the stall timeout for a dead loop.
+            self._die(EngineCrashed(f"engine loop crashed: {e!r}"))
+            return
+        # _shutdown was requested: anything still live will never be
+        # stepped again, so fail it promptly and typed.  (A loop thread
+        # spawned AFTER shutdown lands here immediately, giving
+        # post-shutdown submissions the same clean error.)
+        self._die(EngineCrashed("engine shut down with requests in flight"))
+
+    def _die(self, exc: Exception):
+        """Fail every live request with ``exc`` (loop-death path)."""
+        with self._lock:
+            live = list(self._requests.values())
+            models = list(self.models.values())
+        for lm in models:
+            try:
+                self._drain(lm)    # flush the in-flight step first
+            except Exception:
+                lm.inflight = None  # engine state may already be broken
+        for r in live:
+            try:
+                lm = self.models.get(r.model)
+                if lm is not None:
+                    self._evict_request(lm, r, publish=False)
+            except Exception:
+                pass            # engine state may already be broken
+            self._fail(r, exc)
+
+    def step(self) -> bool:
+        """One engine step across all models.  Returns True if any work."""
+        busy = False
+        with self._lock:
+            models = list(self.models.items())
+        for name, lm in models:
+            busy |= self._step_model(name, lm)
+        if busy:
+            with self._lock:
+                self._t_activity = time.time()
+        return busy
+
+    def _step_model(self, name: str, lm: _LoadedModel) -> bool:
+        """One planned step: decode every running sequence, then spend
+        the remaining token budget on prefill chunks and admissions
+        (see ``Scheduler.plan_step``).  The WHOLE plan — every decode
+        token, every in-flight prefill chunk, and every admission's
+        first chunk — executes as ONE fused ragged step
+        (``_step_fused``), pipelined against the previous step at
+        ``pipeline_depth=2``."""
+        sched = lm.scheduler
+        busy = self._reap_aborted(lm)
+        busy |= self._prune_waiting(lm)
+        # depth 2 planned this step already — behind the device, at the
+        # end of the previous iteration
+        plan, lm.next_plan = lm.next_plan, None
+        if plan is None:
+            plan = sched.plan_step(
+                lm.token_budget, chunk_size=lm.prefill_chunk_size,
+                admission_info=lambda r: self._probe(lm, r),
+                draft_k=lm.draft_k)
+        return busy | self._step_fused(lm, plan)
+
+    def _preempt_newest(self, lm: _LoadedModel):
+        """Graceful degradation on OutOfPages: kick the newest request
+        (ALL of its sibling choices, so they stay consistent) back to
+        the queue and drop its pages; survivors retry next step.  A
+        victim preempted mid-prefill publishes its cursor's tokens so
+        resumption adopts them from the prefix cache instead of
+        recomputing."""
+        _, released = lm.scheduler.preempt_newest()
+        for slot, seq in released:
+            midprefill = (getattr(seq, "prefill_ids", None)
+                          is not None and seq.fork_of is None)
+            lm.runner.release(slot, publish=midprefill)
+            self._unbind(seq)
+
+    @staticmethod
+    def _block_s(lm: _LoadedModel) -> float:
+        """Cumulative seconds the runner spent BLOCKED materializing
+        device results (the pipelined drain's token sync)."""
+        inner = getattr(lm.runner, "runner", lm.runner)
+        return float(getattr(inner, "t_block_s", 0.0))
+
+    def _step_fused(self, lm: _LoadedModel, plan) -> bool:
+        """Fused-step wrapper: runs one pipeline iteration and accounts
+        the host milliseconds that were NOT hidden behind the device
+        (step wall time minus time blocked on materialization)."""
+        t0 = time.monotonic()
+        blk0 = self._block_s(lm)
+        steps0 = lm.exec_steps
+        work = self._pipeline_step(lm, plan)
+        if lm.exec_steps > steps0:
+            lm.host_s += max(0.0, (time.monotonic() - t0)
+                             - (self._block_s(lm) - blk0))
+        return work
+
+    def _draft_tokens(self, lm: _LoadedModel, seq: _Seq,
+                      devfed: bool = False) -> List[int]:
+        """Propose up to ``draft_k`` draft tokens for ``seq``'s next
+        decode row (the speculative verify window's tail).
+
+        Eligibility: no grammar matcher (grammar traffic runs the
+        depth-1 flush path at k=0 — the bitmask for a window position
+        would depend on unverified drafts) and no frequency/presence/
+        repetition penalty (in-window draws would read count planes
+        stale by the window's own earlier tokens).  ``k`` shrinks near
+        ``max_tokens``/``max_context`` so window KV never writes past
+        either limit.
+
+        ``devfed``: the window's first input is still on device (the
+        in-flight step's sampled token), so the lookup anchors one
+        token earlier — on the last HOST-known context — and the
+        matched continuation's first token serves as the guess for the
+        device-fed token itself; the drafts are the tokens after it.
+        A wrong guess just makes the window reject (row 0 always
+        emits), so pipelined speculation never blocks on the host
+        seeing the token.
+
+        Draft sources: the sequence's own context first (prompt
+        lookup), then the radix prefix tree
+        (``PrefixCache.lookup_continuation`` — both engine-loop
+        confined reads)."""
+        sp = seq.sampler
+        if (lm.speculation != "prompt_lookup" or lm.draft_k <= 0
+                or seq.matcher is not None
+                or sp.frequency_penalty or sp.presence_penalty
+                or sp.repetition_penalty != 1.0):
+            return []
+        lag = 3 if devfed else 2       # device-fed rows lag one token
+        k = min(lm.draft_k,
+                seq.request.req.max_tokens - len(seq.generated) - lag,
+                lm.runner.max_context - seq.pos - lag)
+        if k <= 0:
+            return []
+        ctx = seq.request.prompt_ids + list(seq.generated)
+        if not devfed:
+            ctx = ctx + [seq.next_token]
+        want = k + 1 if devfed else k
+        drafts = _prompt_lookup(ctx, want)
+        if not drafts:
+            pc = getattr(lm.runner, "prefix_cache", None)
+            if pc is not None:
+                drafts = pc.lookup_continuation(ctx, want)
+        if devfed:
+            drafts = drafts[1:]        # [0] is the guess for the
+            #                            device-fed token itself
+        return [int(t) for t in drafts[:k]]
+
+    def _plan_rows(self, lm: _LoadedModel, plan):
+        """Revalidate the planner's ragged layout against current state
+        (sequences finish/abort between planning and dispatch) and
+        resolve each decode row's input token: a sequence whose pending
+        token is still on device in the in-flight step is fed
+        device-to-device (``srcs`` maps its row index to the sampling
+        row to gather from); everything else ships the host token.
+
+        A device-fed row whose in-flight input token is CERTAIN to
+        finish the sequence by length is skipped — the row would only
+        be rewound, and its KV write could run past ``max_context``."""
+        rows: List[tuple] = []                 # (seq, tokens, kind)
+        srcs: Dict[int, int] = {}              # row index -> prev sample row
+        h = lm.inflight
+        for row in plan.layout.rows:
+            seq = row.seq
+            if row.kind == "decode":
+                if (seq.slot < 0 or seq.finish_reason is not None
+                        or seq.prefill_remaining != 0
+                        or seq.prefill_ids is not None):
+                    continue
+                devfed = (h is not None and seq.inflight_of is h
+                          and seq.inflight_src is not None)
+                if not devfed and seq.next_token is None:
+                    continue
+                if not devfed and seq.n_inflight > 0:
+                    # a speculative verify window is in flight: how many
+                    # of its tokens survive is data-dependent, so the
+                    # sequence sits this step out and resumes host-fed
+                    # after the window drains
+                    continue
+                if devfed and (len(seq.generated) + 2
+                               >= seq.request.req.max_tokens
+                               or seq.pos + 2 >= lm.runner.max_context):
+                    continue                   # finish certain: no row
+                if devfed:
+                    srcs[len(rows)] = seq.inflight_src
+                    drafts = self._draft_tokens(lm, seq, devfed=True)
+                    # offset 0 is the placeholder the fused step swaps
+                    # for the in-flight step's sampled token
+                    rows.append((seq, [0] + drafts, "decode"))
+                else:
+                    drafts = self._draft_tokens(lm, seq)
+                    rows.append((seq, [seq.next_token] + drafts,
+                                 "decode"))
+                continue
+            if (seq.slot < 0 or seq.finish_reason is not None
+                    or seq.request.aborted or seq.prefill_remaining <= 0):
+                continue                       # reaped/finished since planning
+            n = min(row.n, seq.prefill_remaining)
+            toks = seq.prefill_ids[seq.prefill_pos:seq.prefill_pos + n]
+            rows.append((seq, toks, "prefill"))
+        return rows, srcs
+
+    @staticmethod
+    def _needs_flush(rows) -> bool:
+        """Grammar-masked sampling exports token bitmasks at PACK time,
+        which requires matcher state current through the last sampled
+        token — any in-flight step must drain first (grammar traffic
+        effectively runs at depth 1)."""
+        for seq, toks, kind in rows:
+            if kind == "decode":
+                if seq.matcher is not None:
+                    return True
+            elif len(toks) == seq.prefill_remaining:
+                for s in [seq] + [x for x in seq.request.seqs
+                                  if x.fork_of is seq]:
+                    if s.matcher is not None and s.finish_reason is None:
+                        return True
+        return False
+
+    def _pipeline_step(self, lm: _LoadedModel, plan) -> bool:
+        """One pipeline iteration: dispatch this step's plan (decode
+        inputs chained device-to-device from the in-flight step), then
+        drain the PREVIOUS step's handle while the device computes, and
+        finally (depth 2) plan the NEXT step behind the device.
+
+        In-flight prefill rows precede admissions in the layout, so an
+        older half-prefilled prompt claims its pages first — a newcomer
+        must not starve it into an OutOfPages preempt/restart loop.
+        Flush discipline: grammar packing, OutOfPages preemption, and
+        poisoned-dispatch eviction all drain the in-flight handle
+        before touching sequence/page state it still references."""
+        rows, srcs = self._plan_rows(lm, plan)
+        if lm.inflight is not None and self._needs_flush(rows):
+            self._drain(lm)
+            # the drain may have finished sequences or completed
+            # prefills: rebuild (now with host tokens throughout)
+            rows, srcs = self._plan_rows(lm, plan)
+        for r, first in plan.admit:
+            rows.extend(self._bind_admission(lm, r, first))
+        if not rows:
+            if lm.inflight is not None:
+                self._drain(lm)    # nothing to overlap: retire the lag
+                return True
+            return False
+        while True:
+            try:
+                batch, consumers, n_top = self._pack_sampling(
+                    lm, rows, srcs)
+                break
+            except _GrammarDeadEnd as e:
+                # fail ONLY the dead-ended requests (loudly, like the
+                # host sampler always did) and dispatch the rest.  A
+                # dead end implies grammar rows, which forced the flush
+                # above — so no srcs refer to dropped row indices
+                assert not srcs
+                dead = {id(r) for r in e.requests}
+                for r in e.requests:
+                    self._evict_request(lm, r, publish=False)
+                    self._fail(r, RuntimeError(
+                        "grammar mask excludes every token"))
+                rows = [t for t in rows if id(t[0].request) not in dead]
+                if not rows:
+                    return True
+        prev = lm.inflight
+        try:
+            out = lm.runner.run_step(
+                [(s.slot, toks, kind) for s, toks, kind in rows],
+                sampling=batch, n_top=n_top,
+                return_logits=False,   # no token due -> transfer nothing
+                materialize=(batch is None),
+                prev=(prev.handle if prev is not None and batch is not None
+                      else None),
+                decode_srcs=(srcs or None))
+        except OutOfPages:
+            self._drain(lm)            # in-flight rows reference pages
+            self._preempt_newest(lm)
+            return True
+        except Exception as e:
+            # a poisoned step must not kill the loop thread (callers
+            # would hang until the stall timeout): the fused batch can't
+            # attribute the fault to one row, so fail every request it
+            # carried and keep the engine alive for the rest
+            self._drain(lm)
+            for r in {id(s.request): s.request for s, _, _ in rows}.values():
+                self._evict_request(lm, r, publish=False)
+                self._fail(r, e)
+            return True
+        now = time.monotonic()
+        if prev is None and lm.t_last_ready > 0.0:
+            # nothing was in flight while the host planned this step:
+            # that whole span was device idle (the depth-1 cost)
+            lm.gap_s += max(0.0, now - lm.t_last_ready)
+        lm.exec_steps += 1       # before token consumption wakes callers:
+        #                          stats() must never see calls > steps
+        depth = (1 if prev is not None else 0) + 1
+        if depth > lm.inflight_max:
+            lm.inflight_max = depth
+        if batch is None:
+            # pure mid-prompt chunks, nothing sampled: no handle.  A
+            # RESUMED sequence's completing chunk finishes its prefill
+            # here with nothing to consume (its pending token survives)
+            for seq, toks, kind in rows:
+                if kind != "prefill":
+                    continue
+                seq.prefill_pos += len(toks)
+                if seq.prefill_remaining == 0:
+                    try:
+                        self._complete_prefill(lm, seq, sampled={})
+                    except Exception as e:
+                        self._recover_prefill_failure(lm, seq.request, e)
+            if prev is not None:
+                self._drain(lm)
+            return True
+        h = _Inflight(handle=out, rows=[], consumers=consumers)
+        srcmap = {id(s): i for i, s in enumerate(consumers)}
+        for seq, toks, kind in rows:
+            seq.n_inflight += 1
+            completes = False
+            if kind == "decode" and len(toks) > 1:
+                # speculative verify window: the surviving token is
+                # data-dependent, so there is no single sampling row
+                # the next step could gather from — the sequence sits
+                # out one step (see _plan_rows) and resumes host-fed
+                seq.inflight_of = h
+                seq.inflight_src = None
+                lm.drafted += len(toks) - 1
+            elif kind == "decode":
+                seq.inflight_of = h
+                seq.inflight_src = srcmap[id(seq)]
+            else:
+                # the chunk cursor advances at DISPATCH (the planner
+                # must not re-plan in-flight chunks); completion runs
+                # at drain, one step behind
+                completes = len(toks) == seq.prefill_remaining
+                seq.prefill_pos += len(toks)
+            h.rows.append((seq, toks, kind, completes))
+        lm.inflight = h
+        if prev is not None:
+            self._drain_one(lm, prev)  # consume N-1 while N computes
+        if lm.pipeline_depth < 2:
+            self._drain(lm)            # sequential semantics
+        else:
+            # plan step N+1 behind the device, from post-drain state
+            lm.next_plan = lm.scheduler.plan_step(
+                lm.token_budget, chunk_size=lm.prefill_chunk_size,
+                admission_info=lambda r: self._probe(lm, r),
+                draft_k=lm.draft_k)
+        return True
+
+    def _drain(self, lm: _LoadedModel):
+        """Drain the in-flight step, if any (the pipeline flush)."""
+        h, lm.inflight = lm.inflight, None
+        if h is not None:
+            self._drain_one(lm, h)
+
+    def _drain_one(self, lm: _LoadedModel, h: _Inflight):
+        """Materialize a dispatched step and run its host-side
+        consumption — detok, streaming, finish detection, grammar
+        advance — one step behind the device at depth 2.
+
+        Lag-1 finish: a row dispatched speculatively for a sequence
+        that finished at the PREVIOUS drain is skipped, its input
+        tokens un-appended (page cursor + recorded tokens), and the
+        deferred slot/page release performed — before any publish can
+        see the speculative tokens.
+
+        A speculative verify window retires 1..k+1 tokens: its window
+        inputs were all appended (KV written) at dispatch, so the drain
+        consumes emitted positions in order — each consumed input IS
+        the previous position's emitted draw — stopping at the first
+        non-emitted row or an EOS/stop/length finish, then rewinds
+        every unconsumed input (lag-k).  ``n_inflight`` is decremented
+        only AFTER consumption so a mid-window finish defers its
+        release past the rewind (``pending_release``), keeping rejected
+        draft tokens out of any prefix-cache publish."""
+        try:
+            res = h.handle.materialize()
+        except Exception as e:
+            # a deferred device error surfaces here: fail every request
+            # the handle carried and restore the bookkeeping
+            for r in {id(s.request): s.request
+                      for s, _, _, _ in h.rows}.values():
+                try:
+                    self._evict_request(lm, r, publish=False)
+                except Exception:
+                    pass
+                self._fail(r, e)
+            for seq, _, _, _ in h.rows:
+                seq.n_inflight = max(0, seq.n_inflight - 1)
+                if seq.inflight_of is h:
+                    seq.inflight_of = None
+                    seq.inflight_src = None
+                self._maybe_release(lm, seq)
+            return
+        lm.t_last_ready = time.monotonic()
+        sampled = {}    # id(consumer seq) -> its sample rows, in order
+        for i, s in enumerate(h.consumers):
+            sampled.setdefault(id(s), []).append(
+                (int(res.tokens[i]), float(res.logprob[i]),
+                 res.top_ids[i], res.top_lps[i], bool(res.emit[i])))
+        for seq, toks, kind, completes in h.rows:
+            if seq.inflight_of is h:
+                seq.inflight_of = None
+                seq.inflight_src = None
+            if seq.finish_reason is not None or seq.slot < 0:
+                seq.n_inflight -= 1
+                if kind == "decode" and seq.slot >= 0:
+                    # lag-1 (or whole-window lag-k) finish rewind
+                    lm.runner.rewind_token(seq.slot, len(toks))
+                self._maybe_release(lm, seq)
+                continue
+            if kind == "decode":
+                consumed = 0
+                for t, lp, tids, tlps, em in sampled[id(seq)][:len(toks)]:
+                    if not em:
+                        break         # draft mismatch: fresh draw below
+                    #                   is garbage, sequential path ends
+                    seq.generated.append(seq.next_token)
+                    seq.pos += 1
+                    consumed += 1
+                    self._consume_sampled(lm, seq, (t, lp, tids, tlps))
+                    if seq.finish_reason is not None:
+                        break
+                if len(toks) > 1:
+                    lm.accepted += consumed - 1
+                rew = len(toks) - consumed
+                if rew and seq.slot >= 0:
+                    lm.runner.rewind_token(seq.slot, rew)  # lag-k rewind
+                seq.n_inflight -= 1
+                self._maybe_release(lm, seq)
+            else:
+                seq.n_inflight -= 1
+                if completes and seq.prefill_ids is not None:
+                    try:
+                        self._complete_prefill(lm, seq, sampled=sampled)
+                    except Exception as e:   # CoW fork ran out of pages
+                        self._recover_prefill_failure(lm, seq.request, e)
+
+    def _maybe_release(self, lm: _LoadedModel, seq: _Seq):
+        """Perform a finish/abort release that was deferred while the
+        sequence still had rows in the in-flight step."""
+        if seq.pending_release and seq.n_inflight <= 0 and seq.slot >= 0:
+            lm.runner.release(seq.slot, publish=seq.release_publish)
+            lm.scheduler.release(seq.slot)
+            seq.slot = -1
+            seq.pending_release = False
+
+    def _pack_sampling(self, lm: _LoadedModel, rows: List[tuple],
+                       srcs: Optional[Dict[int, int]] = None):
+        """Build the step's :class:`SamplingParamsBatch`: one sampling
+        row per decode row, plus — for each prefill row whose tokens
+        complete the prompt — one row for the sequence and each of its
+        fork-pending siblings (all drawing from the SAME parent logits
+        row with their own seeds), skipping resumed sequences that
+        already hold a pending token.  Grammar masks are exported as
+        packed bitmasks at pack time (the matcher state is exactly
+        post-last-accepted-token here); a matcher that allows NO token
+        raises :class:`_GrammarDeadEnd` naming the affected requests —
+        the device op would otherwise sample a grammar-illegal token
+        silently where the host sampler always failed loudly.
+
+        A decode row carrying a draft tail (speculative verify window,
+        ``len(toks) == 1 + k``) packs k+1 CONSECUTIVE sampling rows for
+        the same consumer — one per window position, gathering that
+        position's logits (``offsets``), drawing at PRNG counter
+        ``n_sampled + i`` (exactly where the sequential path's draw
+        would land: only emitted tokens are ever observed), and
+        carrying the NEXT window input as the draft to verify
+        (``draft_toks``; the on-device acceptance scan emits a row iff
+        every earlier window row resampled its own draft).  Returns
+        ``(batch | None, consumer seqs in batch order, bucketed
+        top-logprobs K)``."""
+        specs: List[tuple] = []
+        consumers: List[_Seq] = []
+        slot_ids: List[int] = []
+        counters: List[int] = []
+        offs: List[int] = []          # sampling slot within parent row
+        dts: List[int] = []           # draft token to verify (-1: none)
+        wos: List[int] = []           # offset inside the verify window
+        dead: Dict[int, _Request] = {}
+        n_top = 0
+        for b, (seq, toks, kind) in enumerate(rows):
+            if kind == "decode" and len(toks) > 1:
+                # speculative verify window (eligibility in
+                # _draft_tokens guarantees no matcher here); a
+                # device-fed window's first input is still unobserved
+                # by its sampler, so every window counter shifts by one
+                base = (seq.sampler.n_sampled
+                        + (1 if srcs and b in srcs else 0))
+                for i in range(len(toks)):
+                    specs.append((b, seq.sampler, None))
+                    consumers.append(seq)
+                    slot_ids.append(seq.slot)
+                    counters.append(base + i)
+                    offs.append(i)
+                    dts.append(toks[i + 1] if i + 1 < len(toks) else -1)
+                    wos.append(i)
+                req = seq.request.req
+                if req.logprobs and req.top_logprobs > 0:
+                    n_top = max(n_top, req.top_logprobs)
+                continue
+            if kind == "decode":
+                targets = [seq]
+            elif len(toks) == seq.prefill_remaining:
+                sibs = [s for s in seq.request.seqs
+                        if s.fork_of is seq and s.finish_reason is None]
+                targets = [s for s in [seq] + sibs
+                           if s.next_token is None]
+            else:
+                continue                       # mid-prompt: no token
+            for s in targets:
+                mask = s.matcher.token_bitmask() if s.matcher else None
+                if mask is not None and not mask.any():
+                    dead[id(s.request)] = s.request
+                    continue
+                specs.append((b, s.sampler, mask))
+                consumers.append(s)
+                slot_ids.append(s.slot)
+                # a device-fed row's input token is still unobserved by
+                # its sampler (it drains one step behind): advance the
+                # PRNG counter past it so the Gumbel draw lands exactly
+                # where the sequential path's would
+                counters.append(s.sampler.n_sampled
+                                + (1 if srcs and b in srcs else 0))
+                offs.append(len(toks) - 1)
+                dts.append(-1)
+                wos.append(0)
+                req = s.request.req
+                if req.logprobs and req.top_logprobs > 0:
+                    n_top = max(n_top, req.top_logprobs)
+        if dead:
+            raise _GrammarDeadEnd(list(dead.values()))
+        if not specs:
+            return None, [], 0                 # mid-prompt-only step
+        vocab = lm.tokenizer.vocab_size
+        if n_top > 0:                          # bucket: bounded step shapes
+            n_top = min(1 << (n_top - 1).bit_length(), vocab)
+        batch = SamplingParamsBatch.build(specs, vocab,
+                                          slot_ids=slot_ids,
+                                          counters=counters)
+        batch.offsets = np.asarray(offs, np.int32)
+        batch.draft_toks = np.asarray(dts, np.int32)
+        batch.win_off = np.asarray(wos, np.int32)
+        batch.need_logprobs = any(s.request.req.logprobs
+                                  for s in consumers)
+        return batch, consumers, n_top
+
+    def _claim_admission(self, lm: _LoadedModel, r: _Request):
+        """Take a planned admission off the queue and vet its choice
+        set against CURRENT conditions (deliberately recomputed rather
+        than carried over from ``_probe``: the set can shrink via aborts
+        between planning and here, and pages/slots can vanish).  Returns
+        ``(pending, shared)`` when slots may be bound now; ``None`` when
+        the request vanished, resolved empty, or no longer fits (then
+        it is re-queued at the front for retry)."""
+        sched = lm.scheduler
+        pending = r.pending()
+        try:
+            sched.waiting.remove(r)
+        except ValueError:
+            return None                        # reaped since planning
+        if not pending:
+            return None
+        need = max(len(r.prompt_ids) + len(s.generated) for s in pending)
+        shared = self._sharable(lm, pending)
+        if not sched.can_admit(need, len(pending), shared):
+            sched.waiting.appendleft(r)        # conditions changed; retry
+            return None
+        if r.t_admit == 0.0:
+            r.t_admit = time.time()
+        return pending, shared
+
+    def _bind_admission(self, lm: _LoadedModel, r: _Request,
+                        first: int) -> List[tuple]:
+        """Bind a planned admission's unfinished choice set to slots
+        (all-or-nothing) and return its first prefill rows — up to
+        ``first`` tokens — for the fused step.  Host-side only: no
+        kernel runs here; the returned rows execute with the rest of
+        the plan.  Returns [] when the request vanished, conditions
+        changed, or binding failed (failure rolls back, publishes any
+        adopted chunks, and requeues — see
+        ``_recover_prefill_failure``)."""
+        sched = lm.scheduler
+        claim = self._claim_admission(lm, r)
+        if claim is None:
+            return []
+        pending, shared = claim
+        rows: List[tuple] = []
+        try:
+            if shared:
+                s0 = pending[0]
+                self._bind_prefill(lm, r, s0, list(r.prompt_ids))
+                for s in pending[1:]:
+                    s.slot = sched.admit(s, group=r)
+                    s.fork_of = s0
+                targets = [s0]
+            else:
+                # resumed choices have diverged generated suffixes, so
+                # each re-prefills its own prompt+generated copy (the
+                # prefix cache usually makes this cheap)
+                for s in pending:
+                    self._bind_prefill(lm, r, s, r.prompt_ids + s.generated)
+                targets = pending
+        except Exception as e:
+            self._recover_prefill_failure(lm, r, e)
+            return []
+        # spend this step's admission allotment as ragged rows (cursor
+        # advances only after the fused step actually runs them)
+        budget = first
+        for s in targets:
+            if budget <= 0:
+                break
+            n = min(budget, s.prefill_remaining)
+            if n > 0:
+                rows.append(
+                    (s, s.prefill_ids[s.prefill_pos:s.prefill_pos + n],
+                     "prefill"))
+                budget -= n
+        return rows
+
+    def _prune_waiting(self, lm: _LoadedModel) -> bool:
+        """Drop queued requests that can never run: empty choice sets
+        (aborted while queued) resolve silently, prompts that exceed the
+        whole page pool fail fast instead of livelocking through
+        preempt/re-prefill."""
+        sched = lm.scheduler
+        busy = False
+        for r in list(sched.waiting):
+            pending = r.pending()
+            if pending:
+                # fits_ever depends only on the choice set's shape, which
+                # is frozen while the request waits — vet each shape once.
+                # Sharability is part of the shape: a preemption requeue
+                # can flip it (diverged/sampled siblings stop sharing one
+                # prefill) without growing `generated`
+                shared = self._sharable(lm, pending)
+                key = (len(pending),
+                       sum(len(s.generated) for s in pending), shared)
+                if r.fits_key == key:
+                    continue
+                need = max(len(r.prompt_ids) + len(s.generated)
+                           for s in pending)
+                if sched.fits_ever(need, len(pending), shared):
+                    r.fits_key = key
+                    continue
+            try:
+                sched.waiting.remove(r)
+            except ValueError:
+                continue
+            busy = True
+            if pending:
+                self._fail(r, RuntimeError(
+                    "prompt does not fit in the KV page pool"))
+        return busy
+
+    def _probe(self, lm: _LoadedModel, r: _Request) \
+            -> Optional[AdmissionInfo]:
+        """Admission cost of a waiting request: slot count, page need,
+        and — the prioritization key — how many prompt tokens actually
+        need computing once the prefix cache is consulted (a pure
+        ``peek_len``; planning must not perturb LRU or hit counters)."""
+        pending = r.pending()
+        if not pending:
+            return None
+        need = max(len(r.prompt_ids) + len(s.generated) for s in pending)
+        shared = self._sharable(lm, pending)
+        pc = getattr(lm.runner, "prefix_cache", None)
+
+        def uncached(ids: List[int]) -> int:
+            cached = (pc.peek_len(ids[:-1])
+                      if pc is not None and len(ids) > 1 else 0)
+            return max(1, len(ids) - cached)
+
+        if shared:
+            suffix = uncached(r.prompt_ids)
+        else:
+            suffix = sum(uncached(r.prompt_ids + s.generated)
+                         for s in pending)
+        return AdmissionInfo(need=need, n=len(pending), shared=shared,
+                             suffix=suffix)
+
+    @staticmethod
+    def _unbind(seq: _Seq):
+        """Reset a sequence's slot binding and chunk cursor (the next
+        admission recomputes them; published chunks come back through the
+        prefix cache)."""
+        seq.slot = -1
+        seq.prefill_ids = None
+        seq.prefill_pos = 0
+        seq.fork_of = None
+
+    def _evict_request(self, lm: _LoadedModel, r: _Request, publish: bool):
+        """Release every slot ``r`` holds.  ``publish`` pushes each
+        sequence's completed prefill chunks into the prefix cache (the
+        mid-prefill preemption path); fork-pending siblings own no pages
+        and release as a no-op either way."""
+        for slot, seq in lm.scheduler.release_group(r):
+            lm.runner.release(slot, publish=publish and seq.fork_of is None)
+            self._unbind(seq)
+
+    def _reap_aborted(self, lm: _LoadedModel) -> bool:
+        """Finish every choice of aborted requests: running ones release
+        their slots and pages, queued ones just resolve."""
+        sched = lm.scheduler
+        busy = False
+        for slot in list(sched.running):
+            seq = sched.running.get(slot)
+            if (seq is not None and seq.request.aborted
+                    and seq.finish_reason is None):
+                self._finish_seq(lm, seq, "abort")
+                busy = True
+        for r in [w for w in list(sched.waiting) if w.aborted]:
+            try:
+                sched.waiting.remove(r)
+            except ValueError:
+                continue
+            for seq in r.pending():
+                self._finish_seq(lm, seq, "abort")
+            busy = True
+        return busy
+
+    @staticmethod
+    def _sharable(lm: _LoadedModel, pending: List[_Seq]) -> bool:
+        """One shared prompt prefill + CoW forks?  Only on the paged
+        backend, and only while the choices are fresh (a preempted
+        request's choices have diverged generated suffixes)."""
+        return (lm.backend == "paged" and len(pending) > 1
+                and all(not s.generated and s.next_token is None
+                        for s in pending))
+
+    def _recover_prefill_failure(self, lm: _LoadedModel, r: _Request,
+                                 exc: Exception):
+        """Shared rollback for a failed admission or prefill chunk.
+
+        OutOfPages: release everything, publish completed chunks to the
+        prefix cache, and requeue at the front to resume from the cursor
+        (fail fast if nothing else is running — pages will never free).
+        Anything else is a poisoned request: it must not kill the loop
+        thread or leak its slots — surface the error to its caller."""
+        if isinstance(exc, OutOfPages):
+            self._evict_request(lm, r, publish=True)
+            if lm.scheduler.running:
+                lm.scheduler.waiting.appendleft(r)
+            else:
+                self._fail(r, RuntimeError(
+                    "prompt does not fit in the KV page pool"))
+        else:
+            self._evict_request(lm, r, publish=False)
+            self._fail(r, exc)
+
+    def _bind_prefill(self, lm: _LoadedModel, r: _Request, seq: _Seq,
+                      ids: List[int]):
+        """Bind one sequence to a slot and open its chunked prefill; the
+        prefix-cache hit positions the chunk cursor."""
+        seq.slot = lm.scheduler.admit(seq, group=r)
+        cached = lm.runner.begin_prefill(seq.slot, ids)
+        self._seed_counts(lm, seq)
+        seq.prefill_ids = ids
+        seq.prefill_pos = cached
+        r.cached_tokens = max(
+            r.cached_tokens,
+            int(lm.runner.last_prefill_info.get("prefix_cached_tokens", 0)))
+
+    @staticmethod
+    def _seed_counts(lm: _LoadedModel, seq: _Seq):
+        """Seed the device count-plane row when a penalty-bearing
+        sequence (re)binds a slot — the row may hold a previous
+        occupant's scatters; the host sampler stays the durable oracle
+        across preemption and resume."""
+        sp = seq.sampler
+        if (lm.backend == "paged"
+                and (sp.frequency_penalty or sp.presence_penalty
+                     or sp.repetition_penalty != 1.0)):
+            lm.runner.seed_counts(seq.slot, sp.counts,
+                                  lm.tokenizer.vocab_size)
+
+    def _complete_prefill(self, lm: _LoadedModel, seq: _Seq, *,
+                          sampled: Optional[dict] = None):
+        """The last prompt chunk landed: CoW-fork any waiting siblings
+        off the now-complete prompt KV, then consume the first tokens
+        the fused step already sampled on device (``sampled`` maps
+        ``id(seq)`` to each consumer's sample rows — siblings drew from
+        the same logits row with their own seeds; prefill completions
+        always carry exactly one sample row per consumer)."""
+        r = seq.request
+        seq.prefill_ids = None
+        seq.prefill_pos = 0
+        seq.pos = len(r.prompt_ids) + len(seq.generated)
+        sibs = [s for s in r.seqs
+                if s.fork_of is seq and s.finish_reason is None]
+        for s in sibs:
+            lm.runner.fork_slot(seq.slot, s.slot)  # OutOfPages -> caller
+            s.fork_of = None
+            s.pos = seq.pos
+            self._seed_counts(lm, s)
+        if r.t_first == 0.0:
+            r.t_first = time.time()
+            r.prefill_s = r.t_first - (r.t_admit or r.t_submit)
+        for s in [seq] + sibs:
+            if not s.role_sent:
+                self._emit_role(r, s)
+                s.role_sent = True
+            if s.next_token is None:           # fresh (not resumed) seq
+                self._consume_sampled(lm, s, sampled[id(s)][0][:4])
+
+    def _retire(self, rid: str):
+        """Forget a finished/failed request id (caller holds the lock):
+        late aborts of it become no-ops instead of sticky pre-aborts."""
+        self._requests.pop(rid, None)
+        self._preaborted.pop(rid, None)
+        self._retired[rid] = None
+        self._retired.move_to_end(rid)
+        while len(self._retired) > 4096:
+            self._retired.popitem(last=False)
+
+    def _fail(self, r: _Request, exc: Exception):
+        with self._lock:
+            self._retire(r.rid)
+        r.out.put(exc)
+
+    # -- token consumption ---------------------------------------------
+    def _consume_sampled(self, lm: _LoadedModel, seq: _Seq,
+                         sample: tuple):
+        """Fused-path consumption of a device-sampled token: record the
+        batched top-logprobs gather (no logits re-materialization), then
+        the shared token consumption."""
+        t, lp, top_ids, top_lps = sample
+        req = seq.request.req
+        tok = lm.tokenizer
+        if req.logprobs:
+            entry = _lp_entry(tok, api.TokenLogprob, t, lp)
+            entry.top_logprobs = [
+                _lp_entry(tok, api.TopLogprob, int(i), float(v))
+                for i, v in zip(top_ids[:req.top_logprobs],
+                                top_lps[:req.top_logprobs])]
+            seq.logprobs.append(entry)
+        self._consume_token(lm, seq, t)
+
+    def _consume_token(self, lm: _LoadedModel, seq: _Seq, t: int):
+        """Advance one choice by its sampled token: grammar accept,
+        penalty bookkeeping, detokenized streaming, and the
+        EOS/stop/length finish checks."""
+        r = seq.request
+        req = r.req
+        tok = lm.tokenizer
+        if seq.matcher is not None:
+            seq.matcher.accept_token(t)
+        seq.sampler.observe(t)
+
+        if t == tok.eos_id:
+            # EOS contributes no text but is a sampled completion token —
+            # count it, mirroring the length path below
+            seq.generated.append(t)
+            return self._finish_seq(lm, seq, "stop")
+        seq.next_token = t
+        delta = seq.streamer.put(t)
+        seq.text += delta
+        self._emit_progress(r, seq)
+        n_gen = len(seq.generated) + 1           # incl. pending next_token
+        if req.stop and any(s in seq.text for s in req.stop):
+            cut = min(seq.text.find(s) for s in req.stop if s in seq.text)
+            seq.text = seq.text[:cut]
+            return self._finish_seq(lm, seq, "stop")
+        if (n_gen >= req.max_tokens
+                or seq.pos + 1 >= lm.runner.max_context):
+            seq.generated.append(t)
+            return self._finish_seq(lm, seq, "length")
+
+    def _safe_len(self, req: api.ChatCompletionRequest, seq: _Seq) -> int:
+        if not req.stop:
+            return len(seq.text)
+        hold = max(len(s) for s in req.stop) - 1
+        return max(seq.emitted, len(seq.text) - hold)
+
+    # -- chunk emission -------------------------------------------------
+    def _emit_role(self, r: _Request, seq: _Seq):
+        if r.req.stream:
+            r.out.put(api.ChatCompletionChunk(
+                id=r.rid, model=r.model,
+                choices=[api.ChunkChoice(
+                    delta=api.ChoiceDelta(content="", role="assistant"),
+                    index=seq.index)]))
+
+    def _emit_progress(self, r: _Request, seq: _Seq):
+        if not r.req.stream:
+            return
+        if r.tool_grammar:
+            # forced tool calls stream OpenAI-style delta.tool_calls:
+            # an opening id+name delta, then argument-JSON fragments as
+            # the constrained decode produces them
+            self._emit_tool_deltas(r, seq)
+            return
+        safe = self._safe_len(r.req, seq)
+        if safe > seq.emitted:
+            choice = api.ChunkChoice(
+                delta=api.ChoiceDelta(content=seq.text[seq.emitted:safe]),
+                index=seq.index)
+            if r.req.logprobs:
+                choice.logprobs = api.Logprobs(
+                    content=seq.logprobs[seq.lp_emitted:])
+                seq.lp_emitted = len(seq.logprobs)
+            r.out.put(api.ChatCompletionChunk(
+                id=r.rid, model=r.model, choices=[choice]))
+            seq.emitted = safe
+
+    def _emit_tool_deltas(self, r: _Request, seq: _Seq):
+        """Stream the new tool-call deltas the accumulated text unlocks
+        (one chunk per delta, mirroring OpenAI's chunking)."""
+        if seq.tool_stream is None:
+            return
+        for delta in seq.tool_stream.feed(seq.text):
+            r.out.put(api.ChatCompletionChunk(
+                id=r.rid, model=r.model,
+                choices=[api.ChunkChoice(
+                    delta=api.ChoiceDelta(content="", tool_calls=[delta]),
+                    index=seq.index)]))
+
+    # -- completion ------------------------------------------------------
+    def _finish_seq(self, lm: _LoadedModel, seq: _Seq, reason: str):
+        r = seq.request
+        req = r.req
+        seq.text += seq.streamer.flush()
+        # the flush may surface a stop string that was buffered as
+        # incomplete UTF-8 — truncate again
+        for s in req.stop:
+            if s in seq.text:
+                seq.text = seq.text[:seq.text.find(s)]
+                reason = "stop"
+        if (reason == "stop" and req.tools and req.tool_choice != "none"):
+            calls = _parse_tool_calls(seq.text, req.tools)
+            if calls is not None:
+                seq.tool_calls = calls
+                reason = "tool_calls"
+        seq.finish_reason = reason
+        seq.t_done = time.time()
+        seq.next_token = None
+        if seq.slot >= 0:
+            if seq.n_inflight > 0:
+                # the pipeline's in-flight step still carries a row for
+                # this sequence (a speculative KV write + sampled
+                # token): defer the release to that step's drain, which
+                # rewinds the speculative token before any publish
+                seq.pending_release = True
+                seq.release_publish = (reason != "abort")
+            else:
+                # aborted sequences may hold mid-write pages — never
+                # publish them
+                lm.runner.release(seq.slot, publish=(reason != "abort"))
+                lm.scheduler.release(seq.slot)
+                seq.slot = -1
+        last = r.done()
+        if req.stream:
+            if r.tool_grammar and seq.tool_stream is not None:
+                # flush any argument fragments the detok flush surfaced
+                self._emit_tool_deltas(r, seq)
+            delta = api.ChoiceDelta(
+                content="" if reason == "tool_calls"
+                else seq.text[seq.emitted:])
+            if reason == "tool_calls" and not (
+                    seq.tool_stream is not None
+                    and seq.tool_stream.emitted):
+                # non-incremental path (opportunistic "auto" parses):
+                # the whole call rides the final chunk; incrementally
+                # streamed calls were already delivered as fragments
+                delta.tool_calls = seq.tool_calls
+            choice = api.ChunkChoice(delta=delta, index=seq.index,
+                                     finish_reason=reason)
+            if req.logprobs:
+                choice.logprobs = api.Logprobs(
+                    content=seq.logprobs[seq.lp_emitted:])
+                seq.lp_emitted = len(seq.logprobs)
+            usage = (self._usage(r) if last and self._include_usage(req)
+                     else None)
+            r.out.put(api.ChatCompletionChunk(
+                id=r.rid, model=r.model, choices=[choice], usage=usage))
+        if last:
+            self._finish_request(r)
+
+    @staticmethod
+    def _include_usage(req: api.ChatCompletionRequest) -> bool:
+        if req.stream_options is None:
+            return True
+        return bool(req.stream_options.get("include_usage", True))
+
+    def _usage(self, r: _Request) -> api.Usage:
+        t_done = max((s.t_done for s in r.seqs), default=time.time())
+        n_prompt = len(r.prompt_ids)
+        n_gen = sum(len(s.generated) for s in r.seqs)
+        if r.t_first > 0.0:               # aborted-before-prefill: no rates
+            prefill_tps = round(n_prompt / max(r.prefill_s, 1e-9), 2)
+            decode_tps = round(n_gen / max(t_done - r.t_first, 1e-9), 2)
+        else:
+            prefill_tps = decode_tps = 0.0
+        return api.Usage(
+            prompt_tokens=n_prompt, completion_tokens=n_gen,
+            total_tokens=n_prompt + n_gen,
+            extra={
+                "prefill_tokens_per_s": prefill_tps,
+                "decode_tokens_per_s": decode_tps,
+                "e2e_latency_s": round(t_done - r.t_submit, 4),
+                "ttft_s": (round(r.t_first - r.t_submit, 4)
+                           if r.t_first > 0.0 else 0.0),
+                "prefix_cached_tokens": r.cached_tokens,
+            })
+
+    def _finish_request(self, r: _Request):
+        """All choices done: emit the aggregate result + sentinel."""
+        req = r.req
+        if req.stream:
+            r.out.put(_SENTINEL)
+        else:
+            choices = []
+            for s in sorted(r.seqs, key=lambda s: s.index):
+                msg = api.ChatMessage(
+                    "assistant",
+                    None if s.finish_reason == "tool_calls" else s.text,
+                    tool_calls=s.tool_calls)
+                choice = api.Choice(message=msg, index=s.index,
+                                    finish_reason=s.finish_reason)
+                if req.logprobs:
+                    choice.logprobs = api.Logprobs(content=s.logprobs)
+                choices.append(choice)
+            r.out.put(api.ChatCompletionResponse(
+                id=r.rid, model=r.model, choices=choices,
+                usage=self._usage(r)))
+            r.out.put(_SENTINEL)
+        with self._lock:
+            self._retire(r.rid)
+
+    # -- result plumbing ---------------------------------------------------
+    def _next_item(self, r: _Request):
+        """Next queue item for a request; a clear TimeoutError naming
+        the request id when the ENGINE stalls.  Slow-but-alive decoding
+        (e.g. grammar-masked steps) keeps the wait open: we only give up
+        after ``STALL_TIMEOUT_S`` with no engine progress at all."""
+        while True:
+            try:
+                return r.out.get(timeout=30)
+            except queue.Empty:
+                with self._lock:
+                    t_activity = self._t_activity
+                idle = time.time() - t_activity
+                if idle > self.STALL_TIMEOUT_S:
+                    raise TimeoutError(
+                        f"engine stalled: no output for request {r.rid} "
+                        f"and no engine progress for {idle:.0f} s") \
+                        from None
+
+    def _iter_chunks(self, r: _Request) -> Iterator[api.ChatCompletionChunk]:
+        done = False
+        try:
+            while True:
+                item = self._next_item(r)
+                if item is _SENTINEL:
+                    done = True
+                    return
+                if isinstance(item, Exception):
+                    done = True
+                    raise item
+                yield item
+        finally:
+            # closing the iterator mid-stream cancels the request (the
+            # worker boundary maps a closed frontend stream to this);
+            # after normal completion nothing is live to cancel, so
+            # skip the call (it would pool a stale pre-abort entry)
+            if not done:
+                self.abort(r.rid)
+
+    def _collect(self, r: _Request) -> api.ChatCompletionResponse:
+        item = self._next_item(r)
+        if isinstance(item, Exception):
+            raise item
+        rest = self._next_item(r)
+        assert rest is _SENTINEL
+        return item
+
+    def stats(self, model: Optional[str] = None) -> dict:
+        """Live engine/scheduler/runner/cache counters.
+
+        With ``model=None``, a ``{model_name: stats}`` dict for every
+        loaded model; otherwise one model's dict::
+
+            {"backend": "paged",
+             "engine":    {"exec_steps": ...,    # steps that dispatched work
+                           "pipeline_depth": ..., "inflight_steps": ...,
+                           "dispatch_gap_ms": ..., "host_ms_per_step": ...,
+                           "speculation": ..., "draft_k": ...,
+                           "drafted": ..., "accepted": ...,
+                           "accept_rate": ...},
+             "scheduler": {"waiting": ..., "running": ..., "plans": ...,
+                           "admitted": ..., "preemptions": ..., "pages": ...},
+             "runner":    {"attn_kernel_calls": ..., "ragged_steps": ...,
+                           "prefill_tokens": ..., "decode_tokens": ...,
+                           "pages": {...}, "prefix_cache": {...}, ...}}
+
+        ``runner.attn_kernel_calls / engine.exec_steps`` is the
+        dispatch-fusion figure of merit — 1.0 on the paged path.
+        Safe to call concurrently with the engine loop (counters are
+        read racily, never mutated here).  Raises ``KeyError`` for an
+        unknown model name."""
+        if model is None:
+            return {name: self.stats(name) for name in list(self.models)}
+        lm = self.models[model]
+        return {"backend": lm.backend,
+                "engine": {
+                    "exec_steps": lm.exec_steps,
+                    "pipeline_depth": lm.pipeline_depth,
+                    "inflight_steps": lm.inflight_max,
+                    "dispatch_gap_ms": round(
+                        1000.0 * lm.gap_s / max(1, lm.exec_steps), 3),
+                    "host_ms_per_step": round(
+                        1000.0 * lm.host_s / max(1, lm.exec_steps), 3),
+                    "speculation": lm.speculation,
+                    "draft_k": lm.draft_k,
+                    "drafted": lm.drafted,
+                    "accepted": lm.accepted,
+                    "accept_rate": round(
+                        lm.accepted / max(1, lm.drafted), 4)},
+                "scheduler": lm.scheduler.stats(),
+                "runner": lm.runner.stats()}
+
+    def shutdown(self, wait: bool = False, timeout: float = 60.0):
+        """Stop the loop thread; ``wait=True`` joins it, so no step is
+        still running on the device when the caller exits."""
+        self._shutdown = True
+        self._wake.set()
+        with self._lock:
+            t = self._thread
+        if wait and t is not None and t is not threading.current_thread():
+            t.join(timeout)
+
+
+def _lp_entry(tok, cls, i: int, lp: float):
+    """One logprob entry (token string + bytes) for token id ``i``."""
+    return cls(token=tok.decode([i]), logprob=lp,
+               bytes=(list(tok.token_bytes(i))
+                      if i >= tok.n_special else None))
+
+
+def _parse_tool_calls(text: str,
+                      tools: List[dict]) -> Optional[List[api.ToolCall]]:
+    """Parse generated text as tool-call JSON ``{"name", "arguments"}``
+    (or a list of them) against the declared tools; None if it isn't one."""
+    names = set()
+    for t in tools or []:
+        fn = t.get("function", t) if isinstance(t, dict) else {}
+        if fn.get("name"):
+            names.add(fn["name"])
+    try:
+        obj = json.loads(text)
+    except (TypeError, ValueError):
+        return None
+    calls = obj if isinstance(obj, list) else [obj]
+    out = []
+    for c in calls:
+        if not (isinstance(c, dict) and c.get("name") in names):
+            return None
+        args = c.get("arguments", {})
+        out.append(api.ToolCall(
+            id="call_" + uuid.uuid4().hex[:12],
+            function=api.FunctionCall(
+                name=c["name"],
+                arguments=args if isinstance(args, str)
+                else json.dumps(args))))
+    return out or None
