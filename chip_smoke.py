@@ -9,14 +9,20 @@ the result lines:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (Llama-3.1-8B: H=32, Kv=8, D=128, page 16;
-   RMSNorm at D=4096), with times beside the card's bound and a library
-   yardstick;
-4. the card path against the CPU path at reduced depth, same weights;
+   serving path's shapes (Llama-3.1-8B: H=32, Kv=8, D=128, page 16):
+   ragged paged attention over bf16 and int8 pages, its decode and
+   chunked-prefill entry points (both page types), the W4A16 GEMM at
+   M=8 and M=2048, RMSNorm at D=4096 — with times beside the card's
+   bound and a library yardstick;
+4. the card path against the CPU path at reduced depth, same weights,
+   bf16 and W4A16 weights over int8 pages;
 5. the serving path at full Llama-3.1-8B width (random weights): 8
    concurrent chat requests through ``MLCEngine``, with the kernels'
    launch counters checked against the engine's step count;
-6. the ``{"kernels": [...]}`` line, then the device line last.
+6. the same requests with ``kv_dtype="int8", weight_quant="w4a16"``
+   (WebLLM's q4 serving), with its own launch checks;
+7. the per-kind ``prefill_seq`` / ``decode`` calls on that runner;
+8. the ``{"kernels": [...]}`` line, then the device line last.
 
 Imports only torch, numpy and the port (``src/repro_torch``); never JAX
 and never the JAX package.
@@ -24,6 +30,7 @@ and never the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import statistics
@@ -130,9 +137,10 @@ def attention_case(dev, gen):
                 ps=ps)
 
 
-def attention_cost(case):
-    """Bytes each input is read once / output written once, and the
-    flops the valid query tokens need over their visible keys."""
+def attention_cost(case, elem=2, scale_bytes=0):
+    """Bytes each input is read once / output written once (K/V pages at
+    ``elem`` bytes per value plus ``scale_bytes`` per (token, kv-head)),
+    and the flops the valid query tokens need over their visible keys."""
     H, Kv, D, ps = case["H"], case["Kv"], case["D"], case["ps"]
     by = fl = 0
     for b, n in enumerate(case["lengths"]):
@@ -141,7 +149,7 @@ def attention_cost(case):
         if ctx == 0:
             continue
         pages = -(-ctx // ps)
-        by += 2 * pages * ps * Kv * D * 2          # K and V pages
+        by += 2 * pages * ps * Kv * (D * elem + scale_bytes)  # K and V
         by += 2 * n * H * D * 2                    # q in, out
         for c in range(n):
             fl += 4 * H * D * min(ctx, st + c + 1)  # QK^T and PV
@@ -149,68 +157,249 @@ def attention_cost(case):
     return by, fl
 
 
-def check_kernels(dev, results):
+def quantized(case):
+    """The case's pools as int8 values and bf16 scales (the runner's own
+    ``_page_quant``), and the dequantized bf16 pools for the yardstick."""
+    from repro_torch.core.paged_runner import PagedModelRunner
+    kq, ks = PagedModelRunner._page_quant(case["k_pages"])
+    vq, vs = PagedModelRunner._page_quant(case["v_pages"])
+    kd = (kq.float() * ks.float()[..., None]).bfloat16()
+    vd = (vq.float() * vs.float()[..., None]).bfloat16()
+    return kq, vq, dict(k_scales=ks, v_scales=vs), kd, vd
+
+
+def sdpa_yardstick(q, k_pages, v_pages, tables, contexts, starts, ps):
+    """One SDPA call over K/V gathered per row and expanded to H heads
+    (the gather is done before timing), boolean causal mask, on q
+    ``[B, C, H, D]``; returns its time."""
+    B, C, H, D = q.shape
+    Kv = k_pages.shape[2]
+    T = tables.shape[1] * ps
+    ptl = tables.long()
+    G = H // Kv
+    kg = k_pages[ptl].reshape(B, T, Kv, D).repeat_interleave(G, 2) \
+        .transpose(1, 2).contiguous()
+    vg = v_pages[ptl].reshape(B, T, Kv, D).repeat_interleave(G, 2) \
+        .transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    t = torch.arange(T, device=q.device)
+    qpos = starts.long()[:, None] + torch.arange(C, device=q.device)
+    mask = ((t[None, None, :] < contexts.long()[:, None, None])
+            & (t[None, None, :] <= qpos[..., None]))[:, None]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask))
+
+
+def record(results, name, label, err, tol, kernel_ms, plain_ms, library_ms,
+           by, fl):
+    """Store one kernel's numbers for the JSON line and print them."""
+    t_bytes, t_ops = by / HBM_BYTES_PER_S * 1e3, fl / BF16_FLOP_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    results[name] = dict(
+        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by=bound_by, bytes=by, flops=fl)
+    print(f"{label}: max_abs_err={err:.3g} (tol {tol}) "
+          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
+          f"({bound_by}; {by} B, {fl} flop)", flush=True)
+
+
+def close(label, got, want, atol, rtol) -> float:
+    """Max abs error of ``got`` against ``want``; dies past ``atol + rtol
+    * |want|`` or on a non-finite value."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or \
+            bool((diff > atol + rtol * w.abs()).any()):
+        die(f"{label} kernel vs plain: max err {diff.max().item()} over "
+            f"tol {atol} + {rtol:.4g}*|x|")
+    return diff.max().item()
+
+
+def check_ragged(dev, gen, results):
+    """The ragged kernel on the mixed batch, over bf16 and int8 pages."""
     from repro_torch.kernels import paged_attention as pa
+    case = attention_case(dev, gen)
+    idx = (case["page_tables"], case["contexts"], case["starts"])
+    kq, vq, sc, kd, vd = quantized(case)
+    for name, pools, kw, ref_pools, elem, sb in (
+            ("paged_ragged_attention", (case["k_pages"], case["v_pages"]),
+             {}, (case["k_pages"], case["v_pages"]), 2, 0),
+            ("paged_ragged_attention_int8", (kq, vq), sc, (kd, vd), 1, 2)):
+        args = (case["q"], *pools, *idx)
+        got = pa.paged_ragged_attention(*args, **kw)
+        want = pa.paged_ragged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for b, n in enumerate(case["lengths"]):
+            if n == 0:
+                if torch.count_nonzero(got[b]).item():
+                    die(f"{name}: contexts=0 row is not all zeros")
+                continue
+            err = max(err, close(
+                f"{name} row {b} (start {int(case['starts'][b])}, {n} "
+                f"tokens)", got[b, :n], want[b, :n], ATTN_ATOL, ATTN_RTOL))
+        kernel_ms = time_ms(lambda: pa.paged_ragged_attention(*args, **kw))
+        plain_ms = time_ms(lambda: pa.paged_ragged_attention_plain(
+            *args, **kw), iters=3, warm=1)
+        library_ms = sdpa_yardstick(case["q"], *ref_pools, *idx, case["ps"])
+        by, fl = attention_cost(case, elem, sb)
+        record(results, name, name, err,
+               f"{ATTN_ATOL} + {ATTN_RTOL:.4g}*|x|", kernel_ms, plain_ms,
+               library_ms, by, fl)
+
+
+def check_decode_prefill(dev, gen, results):
+    """The decode entry point (B=8 rows, contexts up to 2300) and the
+    chunked-prefill entry point (one 256-token chunk at start 0 and at
+    start 2000), each over bf16 and int8 pages.  The JSON line carries
+    the int8 forms (the ones the quantized path launches) and the
+    prefill chunk at start 2000."""
+    from repro_torch.kernels import paged_attention as pa
+    H, Kv, D, ps, pps = 32, 8, 128, 16, 160
+    B = 8
+    lens = [2300, 1800, 1201, 700, 333, 64, 17, 1]
+    P = B * pps + 1
+    case = dict(H=H, Kv=Kv, D=D, ps=ps, lengths=[1] * B,
+                k_pages=torch.randn((P, ps, Kv, D), generator=gen,
+                                    device=dev).bfloat16(),
+                v_pages=torch.randn((P, ps, Kv, D), generator=gen,
+                                    device=dev).bfloat16())
+    perm = torch.randperm(P - 1, generator=gen, device=dev)
+    case["page_tables"] = perm[:B * pps].reshape(B, pps).to(
+        torch.int32).contiguous()
+    case["contexts"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+    case["starts"] = case["contexts"] - 1
+    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    kq, vq, sc, kd, vd = quantized(case)
+    forms = (("bf16", (case["k_pages"], case["v_pages"]), {},
+              (case["k_pages"], case["v_pages"]), 2, 0),
+             ("int8", (kq, vq), sc, (kd, vd), 1, 2))
+    errs = {"paged_attention": 0.0, "paged_prefill_attention": 0.0}
+    for form, pools, kw, ref_pools, elem, sb in forms:
+        args = (q, *pools, case["page_tables"], case["contexts"])
+        got = pa.paged_attention(*args, **kw)
+        want = pa.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs["paged_attention"] = max(errs["paged_attention"], close(
+            f"decode[{form}]", got, want, ATTN_ATOL, ATTN_RTOL))
+        kernel_ms = time_ms(lambda: pa.paged_attention(*args, **kw),
+                            graph=True)
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(*args, **kw),
+                           iters=3, warm=1)
+        library_ms = sdpa_yardstick(q[:, None], *ref_pools,
+                                    case["page_tables"], case["contexts"],
+                                    case["starts"], ps)
+        by, fl = attention_cost(case, elem, sb)
+        record(results, "paged_attention", f"decode[{form}] B={B}",
+               errs["paged_attention"], f"{ATTN_ATOL} + {ATTN_RTOL:.4g}*|x|",
+               kernel_ms, plain_ms, library_ms, by, fl)
+    C, pps1 = 256, 144
+    qc = torch.randn((C, H, D), generator=gen, device=dev).bfloat16()
+    table = case["page_tables"][0, :pps1].contiguous()
+    for start in (0, 2000):
+        ctx = start + C
+        one = dict(H=H, Kv=Kv, D=D, ps=ps, lengths=[C],
+                   contexts=[ctx], starts=[start],
+                   page_tables=table[None])
+        for form, pools, kw, ref_pools, elem, sb in forms:
+            args = (qc, *pools, table, ctx, start)
+            got = pa.paged_prefill_attention(*args, **kw)
+            want = pa.paged_prefill_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            errs["paged_prefill_attention"] = max(
+                errs["paged_prefill_attention"],
+                close(f"prefill[{form}] start={start}", got, want,
+                      ATTN_ATOL, ATTN_RTOL))
+            kernel_ms = time_ms(
+                lambda: pa.paged_prefill_attention(*args, **kw))
+            plain_ms = time_ms(
+                lambda: pa.paged_prefill_attention_plain(*args, **kw),
+                iters=3, warm=1)
+            i32 = lambda v: torch.tensor(  # noqa: E731
+                [v], dtype=torch.int32, device=dev)
+            library_ms = sdpa_yardstick(qc[None], *ref_pools, table[None],
+                                        i32(ctx), i32(start), ps)
+            by, fl = attention_cost(one, elem, sb)
+            record(results, "paged_prefill_attention",
+                   f"prefill[{form}] C={C} start={start}",
+                   errs["paged_prefill_attention"],
+                   f"{ATTN_ATOL} + {ATTN_RTOL:.4g}*|x|", kernel_ms,
+                   plain_ms, library_ms, by, fl)
+
+
+def check_w4a16(dev, gen, results):
+    """``w4a16_gemm`` at a decode step's M=8 and a padded chunk step's
+    M=2048, group 64: timed at the MLP's two shapes, checked also at the
+    attention projections'.  The JSON line carries M=2048, (K, N) =
+    (4096, 14336)."""
+    from repro_torch.kernels import w4a16_gemm as wg
+    from repro_torch.quant.int4 import quantize_array
+    for K, N in ((14336, 4096), (4096, 14336)):
+        # 4 weight copies (~30 MB packed each) cycle through the timed
+        # calls, so each call's weight was last read ~90 MB earlier
+        # and comes from HBM, not from the 50 MB L2
+        ws = [quantize_array(torch.randn((K, N), generator=gen, device=dev)
+                             .mul_(0.02).bfloat16(), 64) for _ in range(4)]
+        w0 = ws[0]
+        for M in (8, 2048):
+            x = torch.randn((M, K), generator=gen, device=dev).mul_(0.1) \
+                .bfloat16()
+            got = wg.w4a16_gemm(x, w0.data, w0.scales, group=64)
+            want = wg.w4a16_gemm_plain(x, w0.data, w0.scales, 64)
+            torch.cuda.synchronize()
+            # the same bf16 weights and f32 sums in another order: the
+            # final bf16 rounding may flip (2^-7 relative), plus a floor
+            # of 2^-9 of the largest output for sums that cancel
+            atol = 2.0 ** -9 * want.float().abs().max().item()
+            err = close(f"w4a16_gemm M={M} K={K} N={N}", got, want, atol,
+                        2.0 ** -7)
+            nxt = itertools.cycle(ws).__next__
+
+            def kernel():
+                w = nxt()
+                return wg.w4a16_gemm(x, w.data, w.scales, group=64)
+
+            kernel_ms = time_ms(kernel, graph=True)
+            plain_ms = time_ms(lambda: wg.w4a16_gemm_plain(
+                x, w0.data, w0.scales, 64), iters=3, warm=1)
+            wd = [w.dequant() for w in ws]
+            nxt_d = itertools.cycle(wd).__next__
+            library_ms = time_ms(lambda: torch.matmul(x, nxt_d()),
+                                 graph=True)
+            del wd
+            by = M * K * 2 + K * N // 2 + (K // 64) * N * 2 + M * N * 2
+            fl = 2 * M * N * K
+            record(results if (M, K) == (2048, 4096) else {},
+                   "w4a16_gemm", f"w4a16_gemm M={M} K={K} N={N}", err,
+                   "2^-9*max|y| + 2^-7*|y|", kernel_ms, plain_ms,
+                   library_ms, by, fl)
+    # the attention projections (wq / attn.wo, wk / wv): checked, not timed
+    for K, N in ((4096, 4096), (4096, 1024)):
+        w = quantize_array(torch.randn((K, N), generator=gen, device=dev)
+                           .mul_(0.02).bfloat16(), 64)
+        for M in (8, 2048):
+            x = torch.randn((M, K), generator=gen, device=dev).mul_(0.1) \
+                .bfloat16()
+            got = wg.w4a16_gemm(x, w.data, w.scales, group=64)
+            want = wg.w4a16_gemm_plain(x, w.data, w.scales, 64)
+            torch.cuda.synchronize()
+            atol = 2.0 ** -9 * want.float().abs().max().item()
+            err = close(f"w4a16_gemm M={M} K={K} N={N}", got, want, atol,
+                        2.0 ** -7)
+            print(f"w4a16_gemm M={M} K={K} N={N}: max_abs_err={err:.3g} "
+                  f"(tol 2^-9*max|y| + 2^-7*|y|)", flush=True)
+
+
+def check_kernels(dev, results):
     from repro_torch.kernels import rmsnorm as rn
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-
-    # -- ragged paged attention ------------------------------------------
-    case = attention_case(dev, gen)
-    args = (case["q"], case["k_pages"], case["v_pages"],
-            case["page_tables"], case["contexts"], case["starts"])
-    got = pa.paged_ragged_attention(*args)
-    want = pa.paged_ragged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = 0.0
-    for b, n in enumerate(case["lengths"]):
-        if n == 0:
-            if torch.count_nonzero(got[b]).item():
-                die("attention: contexts=0 row is not all zeros")
-            continue
-        g, w = got[b, :n].float(), want[b, :n].float()
-        diff = (g - w).abs()
-        if not bool(torch.isfinite(g).all()) or \
-                bool((diff > ATTN_ATOL + ATTN_RTOL * w.abs()).any()):
-            die(f"attention kernel vs plain, row {b} (start "
-                f"{int(case['starts'][b])}, {n} tokens): max err "
-                f"{diff.max().item()} over tol {ATTN_ATOL} + "
-                f"{ATTN_RTOL:.4g}*|x|")
-        err = max(err, diff.max().item())
-    kernel_ms = time_ms(lambda: pa.paged_ragged_attention(*args))
-    plain_ms = time_ms(lambda: pa.paged_ragged_attention_plain(*args),
-                       iters=3, warm=1)
-    # yardstick: one SDPA call over K/V gathered per row and expanded to
-    # H heads (the gather is done before timing), boolean causal mask
-    B, C = case["q"].shape[:2]
-    T = case["page_tables"].shape[1] * case["ps"]
-    ptl = case["page_tables"].long()
-    G = case["H"] // case["Kv"]
-    kg = case["k_pages"][ptl].reshape(B, T, case["Kv"], case["D"]) \
-        .repeat_interleave(G, 2).transpose(1, 2).contiguous()
-    vg = case["v_pages"][ptl].reshape(B, T, case["Kv"], case["D"]) \
-        .repeat_interleave(G, 2).transpose(1, 2).contiguous()
-    qt = case["q"].transpose(1, 2).contiguous()
-    t = torch.arange(T, device=dev)
-    qpos = case["starts"].long()[:, None] + torch.arange(C, device=dev)
-    mask = ((t[None, None, :] < case["contexts"].long()[:, None, None])
-            & (t[None, None, :] <= qpos[..., None]))[:, None]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kg, vg, attn_mask=mask))
-    by, fl = attention_cost(case)
-    t_bytes, t_ops = by / HBM_BYTES_PER_S * 1e3, fl / BF16_FLOP_PER_S * 1e3
-    results["paged_ragged_attention"] = dict(
-        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=by, flops=fl)
-    print(f"attention: max_abs_err={err:.3g} (tol {ATTN_ATOL} + "
-          f"{ATTN_RTOL:.4g}*|x|) "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-          f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
-          f"{by} B, {fl} flop)", flush=True)
+    check_ragged(dev, gen, results)
+    check_decode_prefill(dev, gen, results)
+    check_w4a16(dev, gen, results)
 
     # -- rmsnorm, plain and residual forms, at the step's rows -----------
     D = 4096
@@ -265,9 +454,10 @@ def check_kernels(dev, results):
 
 
 # ---------------------------------------------------------------------
-def check_card_vs_cpu(dev):
+def check_card_vs_cpu(dev, **opts):
     """Same weights (built on the CPU, copied to the card), one ragged
-    logits step and one greedy sampled step on each path."""
+    logits step and one greedy sampled step on each path; ``opts`` are
+    the runner's quantization options."""
     from repro_torch.configs import get_config
     from repro_torch.core.paged_runner import PagedModelRunner
     from repro_torch.core.sampler import RequestSampler, SamplingParamsBatch
@@ -282,7 +472,7 @@ def check_card_vs_cpu(dev):
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         run = PagedModelRunner(cfg, params, num_pages=32, page_size=16,
                                max_slots=4, pages_per_seq=8,
-                               chunk_size=16, device=device)
+                               chunk_size=16, device=device, **opts)
         sids = [run.begin_seq(p) for p in prompts]
         logits = run.run_step([(s, p, "prefill")
                                for s, p in zip(sids, prompts)])
@@ -310,7 +500,8 @@ def check_card_vs_cpu(dev):
             die(f"greedy token {i} differs: cpu {rc.tokens.tolist()} card "
                 f"{rg.tokens.tolist()} (cpu margin {margin:.3g})")
         same.append(ok)
-    print(f"card vs cpu (reduced {cfg.n_layers} layers): logits max err "
+    print(f"card vs cpu (reduced {cfg.n_layers} layers{opts or ''}): "
+          f"logits max err "
           f"{err:.3g} (tol {LOGIT_ATOL}); greedy tokens equal: {same}",
           flush=True)
 
@@ -357,23 +548,43 @@ def profile_serving(engine, jobs, out_path: Path):
     print(text[0], flush=True)
 
 
-def serve_full_width(dev, results, profile_to=None):
+def weight_bytes(params) -> int:
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.quant.int4 import is_qtensor
+    total = 0
+    for t in tree_leaves(params):
+        for part in ((t.data, t.scales) if is_qtensor(t) else (t,)):
+            total += part.numel() * part.element_size()
+    return total
+
+
+def serve_full_width(dev, results, quant=False, profile_to=None):
+    """Serve the 8 requests at full width: bf16 weights and pages, or
+    (``quant``) W4A16 weights over int8 pages, WebLLM's q4 default.
+    Returns the engine's runner (the engine is shut down)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ChatMessage, MLCEngine
     from repro_torch.core.api import ChatCompletionRequest
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import w4a16_gemm as wg
 
     cfg = get_config("llama-3.1-8b")
+    opts = dict(kv_dtype="int8", weight_quant="w4a16") if quant else {}
+    gc.collect()
     t0 = time.perf_counter()
     engine = MLCEngine()
     engine.load_model("llama", cfg, backend="paged", max_slots=8,
                       max_context=4096, prefill_chunk_size=256, seed=0,
-                      warmup=True, device=dev)
+                      warmup=True, device=dev, **opts)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    runner = engine.models["llama"].runner.runner
     print(f"loaded {cfg.name} ({cfg.num_params() / 1e9:.2f} B params, "
-          f"{cfg.n_layers} layers) in {time.perf_counter() - t0:.1f} s; "
+          f"{cfg.n_layers} layers{', w4a16 + int8 KV' if quant else ''}) "
+          f"in {time.perf_counter() - t0:.1f} s; weights "
+          f"{weight_bytes(runner.params) / 2**30:.2f} GiB, KV pools "
+          f"{runner.pm.num_pages * runner.page_bytes / 2**30:.2f} GiB; "
           f"device memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB",
           flush=True)
     tok = engine.models["llama"].tokenizer
@@ -415,8 +626,7 @@ def serve_full_width(dev, results, profile_to=None):
         except Exception as e:
             errors.append(repr(e))
 
-    pa.launches = 0
-    rn.launches = 0
+    pa.launches = pa.launches_int8 = rn.launches = wg.launches = 0
     steps0 = engine.stats("llama")["engine"]["exec_steps"]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=run, args=j) for j in jobs]
@@ -428,7 +638,8 @@ def serve_full_width(dev, results, profile_to=None):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    attn_launches, norm_launches = pa.launches, rn.launches
+    counts = dict(ragged=pa.launches, ragged_int8=pa.launches_int8,
+                  rmsnorm=rn.launches, w4a16=wg.launches)
     stats = engine.stats("llama")
     if profile_to is not None and not errors:
         profile_serving(engine, jobs, profile_to)
@@ -447,13 +658,19 @@ def serve_full_width(dev, results, profile_to=None):
                 r.usage.completion_tokens < 1:
             die(f"bad response {r.id}: {c.finish_reason}")
     cached = results_by["chat"][1].usage.extra["prefix_cached_tokens"]
+    ragged = "ragged_int8" if quant else "ragged"
     checks = {
         "attn_kernel_calls == exec_steps":
             run_stats["attn_kernel_calls"] == stats["engine"]["exec_steps"],
         "host_logit_rows == 0": run_stats["host_logit_rows"] == 0,
-        "ragged launches == 32 x steps": attn_launches == 32 * steps,
-        "rmsnorm launches == 65 x steps": norm_launches == 65 * steps,
+        f"{ragged} launches == 32 x steps": counts[ragged] == 32 * steps,
+        "rmsnorm launches == 65 x steps": counts["rmsnorm"] == 65 * steps,
+        "w4a16_gemm launches == "
+        f"{224 if quant else 0} x steps":
+            counts["w4a16"] == (224 if quant else 0) * steps,
         "turn-2 prefix_cached_tokens > 0": cached > 0,
+        f"kv_dtype == {opts.get('kv_dtype', 'f32')}":
+            run_stats["kv_dtype"] == opts.get("kv_dtype", "f32"),
     }
     ttft = statistics.median(r.usage.extra["ttft_s"] for r in responses)
     itl = statistics.median(
@@ -462,16 +679,55 @@ def serve_full_width(dev, results, profile_to=None):
     print(f"serve: {len(responses)} requests, long prompt {n_long} tokens, "
           f"{n_gen} tokens in {wall:.2f} s = {n_gen / wall:.1f} tok/s; "
           f"TTFT p50 {ttft * 1e3:.1f} ms; ITL p50 {itl * 1e3:.2f} ms; "
-          f"exec_steps {steps}; launches: ragged {attn_launches}, "
-          f"rmsnorm {norm_launches}; turn-2 cached {cached}; "
+          f"exec_steps {steps}; launches: {counts}; turn-2 cached {cached}; "
           f"host_ms_per_step {stats['engine']['host_ms_per_step']}",
           flush=True)
     for k, ok in checks.items():
         print(f"  check {k}: {'ok' if ok else 'FAILED'}", flush=True)
     if not all(checks.values()):
         die("serving-path checks failed")
-    results["paged_ragged_attention"]["launches"] = attn_launches
-    results["rmsnorm"]["launches"] = norm_launches
+    if quant:
+        results["paged_ragged_attention_int8"]["launches"] = \
+            counts["ragged_int8"]
+        results["w4a16_gemm"]["launches"] = counts["w4a16"]
+    else:
+        results["paged_ragged_attention"]["launches"] = counts["ragged"]
+        results["rmsnorm"]["launches"] = counts["rmsnorm"]
+    return runner
+
+
+def per_kind_full_width(runner, results):
+    """The per-kind paths on the quantized full-width runner: a 600-token
+    prompt through ``prefill_seq`` (chunks of 256 through the prefill
+    kernel), then 4 batched ``decode`` calls; the decode and prefill
+    launch counters must move by one per layer and call, and the logits
+    be finite."""
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, runner.cfg.vocab_size, 600).tolist()
+    L = runner.cfg.n_layers
+    pa.decode_launches = pa.prefill_launches = 0
+    t0 = time.perf_counter()
+    sid = runner.prefill_seq(prompt)
+    cached = runner.last_prefill_info["prefix_cached_tokens"]
+    first = runner.last_prefill_logits()
+    logits = [runner.decode({sid: int(np.argmax(first))})[sid]]
+    for _ in range(3):
+        logits.append(runner.decode({sid: int(np.argmax(logits[-1]))})[sid])
+    wall = time.perf_counter() - t0
+    n_pf, n_dec = pa.prefill_launches, pa.decode_launches
+    chunks = -(-(len(prompt) - cached) // runner.chunk_size)
+    ok = (n_pf == L * chunks and n_dec == L * 4
+          and all(np.isfinite(x).all() for x in [first] + logits)
+          and first.shape == (runner.cfg.vocab_size,))
+    print(f"per-kind: prefill_seq of {len(prompt)} tokens ({chunks} chunks) "
+          f"+ 4 decode calls in {wall:.2f} s; launches: prefill {n_pf}, "
+          f"decode {n_dec}; logits finite: {ok}", flush=True)
+    if not ok:
+        die("per-kind path checks failed")
+    runner.free(sid)
+    results["paged_attention"]["launches"] = n_dec
+    results["paged_prefill_attention"]["launches"] = n_pf
 
 
 # ---------------------------------------------------------------------
@@ -480,9 +736,9 @@ def main():
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serving phase, serve its requests "
+                    help="after each serving phase, serve its requests "
                          "again under torch.profiler; tables go to "
-                         "chiprun_out/profile_serve.txt")
+                         "chiprun_out/profile_serve*.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         die("torch.cuda.is_available() is false: this smoke run needs a "
@@ -515,17 +771,32 @@ def main():
     check_kernels(dev, results)
     phase("card path vs cpu path")
     check_card_vs_cpu(dev)
+    check_card_vs_cpu(dev, kv_dtype="int8", weight_quant="w4a16")
     phase("serve llama-3.1-8b at full width")
     out_dir = ROOT / "chiprun_out"
     if args.profile:
         out_dir.mkdir(exist_ok=True)
     serve_full_width(dev, results, profile_to=(
         out_dir / "profile_serve.txt" if args.profile else None))
+    phase("serve llama-3.1-8b w4a16 + int8 KV at full width")
+    runner = serve_full_width(dev, results, quant=True, profile_to=(
+        out_dir / "profile_serve_w4a16_int8.txt" if args.profile else None))
+    phase("per-kind prefill_seq / decode on the quantized runner")
+    per_kind_full_width(runner, results)
+    del runner
 
+    attn_src = "src/repro_torch/kernels/csrc/paged_ragged_attention.cu"
     replaces = {
         "paged_ragged_attention": (
-            "src/repro_torch/kernels/csrc/paged_ragged_attention.cu",
-            "src/repro/kernels/paged_attention.py:369"),
+            attn_src, "src/repro/kernels/paged_attention.py:369"),
+        "paged_ragged_attention_int8": (
+            attn_src, "src/repro/kernels/paged_attention.py:369"),
+        "paged_attention": (
+            attn_src, "src/repro/kernels/paged_attention.py:114"),
+        "paged_prefill_attention": (
+            attn_src, "src/repro/kernels/paged_attention.py:237"),
+        "w4a16_gemm": ("src/repro_torch/kernels/csrc/w4a16_gemm.cu",
+                       "src/repro/kernels/w4a16_gemm.py:57"),
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:34"),
     }

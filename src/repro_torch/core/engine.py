@@ -273,9 +273,8 @@ class MLCEngine:
         fused ragged steps (one attention kernel launch per layer per
         engine step); it is the only backend of the port so far:
         ``backend="dense"`` (the reference's default, kept in the
-        signature), ``quantize=True``, ``kv_dtype="int8"`` and
-        ``weight_quant="w4a16"`` raise ``NotImplementedError`` naming
-        their roadmap item.  It requires a pure-GQA decoder
+        signature) and ``quantize=True`` raise ``NotImplementedError``
+        naming their roadmap item.  It requires a pure-GQA decoder
         (``paged_supported``).
 
         ``device``
@@ -319,11 +318,15 @@ class MLCEngine:
             can govern several loaded models of different shapes and
             precisions.  When both caps are set the tighter one wins.
         ``kv_dtype``
-            ``"f32"`` (default): bf16 KV pools.  ``"int8"`` is not ported
-            yet (ROADMAP A1).
+            ``"f32"`` (default): bf16 KV pools.  ``"int8"``: int8 pages
+            with a bf16 scale per (token, kv-head), quantized when K/V
+            are scattered and dequantized inside the attention kernel's
+            page loop — about 1.97x the pages under one byte budget.
         ``weight_quant``
-            ``"off"`` (default) serves bf16 weights.  ``"w4a16"`` is not
-            ported yet (ROADMAP A3).
+            ``"off"`` (default) serves bf16 weights.  ``"w4a16"`` packs
+            every projection weight to int4 with bf16 group scales at
+            load (embed and lm_head stay bf16) and runs each projection
+            through the W4A16 GEMM kernel.
         ``page_size`` / ``num_pages``
             Tokens per physical KV page, and the pool size (default:
             ``(max_slots + 2) * ceil(max_context / page_size)`` — every

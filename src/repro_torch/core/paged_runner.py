@@ -1,11 +1,16 @@
 """PagedModelRunner: ragged fused steps through the paged KV cache, in
 PyTorch.
 
-Port of ``src/repro/core/paged_runner.py`` (the engine's path).  Every
+Port of ``src/repro/core/paged_runner.py``, every option of it.  Every
 token — prompt or completion, cold or cache-hit — flows through page
-pools ``[L, P + 1, page_size, Kv, Dh]`` (bf16), and a whole engine step
-runs as ONE ragged attention kernel launch per layer
-(``repro_torch.kernels.paged_attention``):
+pools ``[L, P + 1, page_size, Kv, Dh]``: bf16 by default, or int8 values
+with bf16 per-(token, kv-head) scale planes ``[L, P + 1, page_size, Kv]``
+under ``kv_dtype="int8"`` (quantized at scatter time; the planes ride
+through every page copy, fork, publish/adopt and rewind with their
+pages).  Under ``weight_quant="w4a16"`` the projection weights are
+packed to int4 at load and every projection goes through ``qdot`` (the
+W4A16 GEMM kernel).  A whole engine step runs as ONE ragged attention
+kernel launch per layer (``repro_torch.kernels.paged_attention``):
 
 * ``run_step(rows)``: each row is a chunk of consecutive tokens of one
   sequence (a decode token is a length-1 row).  All rows' K/V are
@@ -14,9 +19,12 @@ runs as ONE ragged attention kernel launch per layer
   power-of-two ``(B, C)`` bucket whose pad K/V writes land in a trash
   page, and with a :class:`SamplingParamsBatch` the step samples on the
   device (``repro_torch.kernels.sampling``) so only token ids come back.
-* The per-kind single calls of the reference (``decode``,
-  ``prefill_chunk``/``prefill_seq``) need the decode and prefill paged
-  kernels, which are not ported yet (ROADMAP A2); they raise.
+* ``prefill_chunk(sid, tokens)`` / ``decode(seq_tokens)``: the per-kind
+  single calls (one sequence's chunk through the chunked-prefill
+  kernel, one batched decode token per sequence through the decode
+  kernel), kept as the reference path for tests and non-interleaving
+  callers; they return logits to the host (counted by
+  ``host_logit_rows``).  ``prefill_seq`` loops chunks over a prompt.
 
 PyTorch enqueues asynchronously on the current CUDA stream, so a
 :class:`StepHandle` is a set of device tensors whose ``materialize()``
@@ -44,15 +52,15 @@ from repro_torch.core.paged_cache import OutOfPages, PageManager
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.sampler import SampleResult, SamplingParamsBatch
 from repro_torch.device import resolve_device
-from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_prefill_attention,
+                                                 paged_ragged_attention)
 from repro_torch.kernels.sampling import batched_accept, batched_sample
 from repro_torch.models.attention import _project, _qk_norm
 from repro_torch.models.layers import apply_rope, mlp, rmsnorm
 from repro_torch.models.params import (init_params, paged_supported,
-                                       to_device)
-
-_PER_KIND = ("per-kind paged paths (decode / prefill_chunk) need the "
-             "decode and prefill paged kernels: ROADMAP A2")
+                                       params_def, to_device)
+from repro_torch.quant.int4 import qdot, quantize_tree
 
 __all__ = ["OutOfPages", "PagedEngineBackend", "PagedModelRunner",
            "StepHandle", "paged_supported"]
@@ -182,29 +190,24 @@ class PagedModelRunner:
                  device=None):
         assert paged_supported(cfg), f"{cfg.name}: paged path needs pure GQA"
         assert chunk_size >= 1
-        if kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8' needs the int8 form of the ragged kernel: "
-                "ROADMAP A1")
-        if weight_quant == "w4a16":
-            raise NotImplementedError(
-                "weight_quant='w4a16' needs the W4A16 GEMM kernel: "
-                "ROADMAP A3")
-        assert kv_dtype == "f32", kv_dtype
-        assert weight_quant == "off", weight_quant
+        assert kv_dtype in ("f32", "int8"), kv_dtype
+        assert weight_quant in ("off", "w4a16"), weight_quant
         self.device = resolve_device(device)
         self.cfg = cfg
         self.page_size = page_size
         self.pages_per_seq = pages_per_seq
         self.max_slots = max_slots
         self.chunk_size = chunk_size
+        self.kv_quant = kv_dtype == "int8"
         self.kv_dtype = kv_dtype
         self.weight_quant = weight_quant
         self.pm = PageManager(num_pages, page_size, max_slots, pages_per_seq)
         # K + V planes across every layer: what one physical page costs
-        # ("f32" pools hold bf16 vectors, 2 bytes per element)
+        # ("f32" pools hold bf16 vectors; int8 pools one byte per element
+        # plus a bf16 scale per (token, kv-head))
+        kv_elem, scale_bytes = (1, 2) if self.kv_quant else (2, 0)
         self.page_bytes = (2 * cfg.n_layers * page_size * cfg.n_kv_heads
-                           * cfg.head_dim * 2)
+                           * (cfg.head_dim * kv_elem + scale_bytes))
         self.prefix_cache = (
             PrefixCache(self.pm, max_cached_pages=max_cached_pages,
                         max_cached_bytes=max_cached_bytes,
@@ -214,9 +217,9 @@ class PagedModelRunner:
         self.last_prefill_info: Dict[str, int] = {"prefix_cached_tokens": 0}
         self.n_prefills = 0               # prompt prefills (not forks)
         self.n_forks = 0                  # CoW sequence forks
-        self.n_prefill_chunks = 0         # per-kind chunk calls (unported)
+        self.n_prefill_chunks = 0         # per-kind prefill chunk calls
         self.n_prefill_tokens = 0         # real (non-pad) tokens prefilled
-        self.n_decode_steps = 0           # per-kind decode calls (unported)
+        self.n_decode_steps = 0           # per-kind batched decode calls
         self.n_decode_tokens = 0          # tokens decoded across the batch
         self.n_ragged_steps = 0           # fused ragged steps
         self.n_sampled_tokens = 0         # tokens sampled ON DEVICE
@@ -241,70 +244,164 @@ class PagedModelRunner:
                                         device=self.device)
         self._plane_vocab: Optional[int] = None
         self._staging = _Staging(self.device)
-        #: bounded trace of steps: ("ragged", n_decode_rows, n_prefill_tokens)
+        #: bounded trace of steps: ("decode", batch_size) |
+        #: ("chunk", n_valid_tokens) | ("ragged", n_decode_rows,
+        #: n_prefill_tokens)
         self.step_log: Deque[Tuple] = deque(maxlen=4096)
+        self._last_logits_np: Optional[np.ndarray] = None
         if params is None:
             params = init_params(cfg, seed, self.device)
         else:
             params = to_device(params, self.device)
+        if weight_quant == "w4a16":
+            # in place on the runner's own tree: each bf16 weight is
+            # released as soon as it is packed
+            params = quantize_tree(params, params_def(cfg))
         self.params = params
         self.layers = params["layers"]
         L, Kv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         # one extra physical page (index num_pages) absorbs the K/V
         # writes of pad slots — never in any page table, never read
         self.trash_page = num_pages
-        self.k_pages = torch.zeros((L, num_pages + 1, page_size, Kv, Dh),
-                                   dtype=torch.bfloat16, device=self.device)
+        self.k_pages = torch.zeros(
+            (L, num_pages + 1, page_size, Kv, Dh),
+            dtype=torch.int8 if self.kv_quant else torch.bfloat16,
+            device=self.device)
         self.v_pages = torch.zeros_like(self.k_pages)
+        # per-(token, kv-head) dequant scale planes, laid out like the
+        # pools so the page tables route them too (int8 pools only)
+        self.k_scales = self.v_scales = None
+        if self.kv_quant:
+            self.k_scales = torch.zeros((L, num_pages + 1, page_size, Kv),
+                                        dtype=torch.bfloat16,
+                                        device=self.device)
+            self.v_scales = torch.zeros_like(self.k_scales)
         # persistent all-zero "previous tokens", for steps with no
         # pipelined predecessor
         self._zero_prev: Dict[int, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _page_quant(x: torch.Tensor):
+        """Symmetric per-(token, kv-head) int8 quantization of K/V rows:
+        ``x [..., Kv, Dh] -> (int8 values, bf16 scales [..., Kv])``,
+        bitwise the reference's (f32 ``amax / 127`` floored at 1e-8,
+        round half to even, clip to +-127).  Dequant is ``values *
+        scale`` — the multiply the attention kernel fuses into its page
+        loop."""
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1)
+        scale = torch.clamp(amax / 127.0, min=1e-8)
+        q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+        return q.to(torch.int8), scale.to(torch.bfloat16)
+
+    def _scatter_kv(self, li: int, page_idx, page_off, k, v):
+        """Scatter one layer's new K/V rows ``[N, Kv, Dh]`` into the pools
+        in place — quantized at scatter time (values + scales) when the
+        pool is int8."""
+        at = (page_idx, page_off)
+        if self.kv_quant:
+            kq, ks = self._page_quant(k)
+            vq, vs = self._page_quant(v)
+            self.k_pages[li].index_put_(at, kq)
+            self.v_pages[li].index_put_(at, vq)
+            self.k_scales[li].index_put_(at, ks)
+            self.v_scales[li].index_put_(at, vs)
+        else:
+            self.k_pages[li].index_put_(at, k)
+            self.v_pages[li].index_put_(at, v)
+
+    def _layer_pools(self, li: int):
+        """One layer's pools and scale planes (``None`` for bf16 pools),
+        the attention kernels' operands."""
+        if self.kv_quant:
+            return (self.k_pages[li], self.v_pages[li], self.k_scales[li],
+                    self.v_scales[li])
+        return self.k_pages[li], self.v_pages[li], None, None
+
+    def _forward(self, tokens, pos, page_idx, page_off, attend):
+        """The model over ``tokens``/``pos [b, s]`` with K/V scattered to
+        ``page_idx``/``page_off [b*s]`` (pads to the trash page) before
+        each layer's ``attend(q [b, s, H, Dh], k_pages, v_pages, k_scales,
+        v_scales) -> [b, s, H*Dh]``.  Returns logits ``[b, s, V]`` in bf16
+        (bf16 activations @ bf16 lm_head, the reference's rounding)."""
+        cfg = self.cfg
+        params = self.params
+        page_idx = page_idx.long()
+        page_off = page_off.long()
+        x = params["embed"][tokens.long()]                     # [b,s,D]
+        for li, p in enumerate(self.layers):
+            h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
+            q = _project(cfg, p["attn"], h, "q", cfg.n_heads)  # [b,s,H,Dh]
+            k = _project(cfg, p["attn"], h, "k", cfg.n_kv_heads)
+            v = _project(cfg, p["attn"], h, "v", cfg.n_kv_heads)
+            q, k = _qk_norm(cfg, p["attn"], q, k)
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+            self._scatter_kv(li, page_idx, page_off,
+                             k.reshape(-1, cfg.n_kv_heads, cfg.head_dim),
+                             v.reshape(-1, cfg.n_kv_heads, cfg.head_dim))
+            att = attend(q, *self._layer_pools(li))
+            x = x + qdot(att, p["attn"]["wo"])
+            h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+            x = x + mlp(h, p["ffn"], cfg.act)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return x @ params["embed"].T
+        return x @ params["lm_head"]
+
     def _ragged_logits(self, tokens, pos, page_tables, contexts, starts,
                        page_idx, page_off):
         """One fused ragged step over B packed rows of C slots each.
 
         tokens/pos/page_idx/page_off [B*C] (row b occupies ``b*C :
         (b+1)*C``; slots past the row's valid length are pads);
-        page_tables [B, pps]; contexts/starts [B].  K/V for all slots
-        are scattered into the pools in place (pads into the trash page)
-        and every row attends to its own page-table row — one attention
-        kernel launch per layer.  Returns each row's per-slot logits
-        ``[B, C, V]`` in bf16 (bf16 activations @ bf16 lm_head, the
-        reference's rounding)."""
+        page_tables [B, pps]; contexts/starts [B].  Every row attends to
+        its own page-table row — one attention kernel launch per layer.
+        Returns each row's per-slot logits ``[B, C, V]``."""
         cfg = self.cfg
-        params = self.params
         B = page_tables.shape[0]
         N = tokens.shape[0]
         C = N // B
-        tokens = tokens.long()
-        page_idx = page_idx.long()
-        page_off = page_off.long()
-        x = params["embed"][tokens][None]                      # [1,N,D]
-        for li, p in enumerate(self.layers):
-            h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
-            q = _project(cfg, p["attn"], h, "q", cfg.n_heads)  # [1,N,H,Dh]
-            k = _project(cfg, p["attn"], h, "k", cfg.n_kv_heads)
-            v = _project(cfg, p["attn"], h, "v", cfg.n_kv_heads)
-            q, k = _qk_norm(cfg, p["attn"], q, k)
-            q = apply_rope(q, pos[None, :], cfg.rope_theta)
-            k = apply_rope(k, pos[None, :], cfg.rope_theta)
-            self.k_pages[li].index_put_((page_idx, page_off), k[0])
-            self.v_pages[li].index_put_((page_idx, page_off), v[0])
-            att = paged_ragged_attention(
-                q[0].reshape(B, C, cfg.n_heads, cfg.head_dim),
-                self.k_pages[li], self.v_pages[li], page_tables, contexts,
-                starts)                                        # [B,C,H,Dh]
-            x = x + att.reshape(1, N, -1) @ p["attn"]["wo"]
-            h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-            x = x + mlp(h, p["ffn"], cfg.act)
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = x @ params["embed"].T
-        else:
-            logits = x @ params["lm_head"]
+
+        def attend(q, kp, vp, ks, vs):
+            return paged_ragged_attention(
+                q[0].reshape(B, C, cfg.n_heads, cfg.head_dim), kp, vp,
+                page_tables, contexts, starts, k_scales=ks,
+                v_scales=vs).reshape(1, N, -1)
+
+        logits = self._forward(tokens[None], pos[None], page_idx, page_off,
+                               attend)
         return logits[0].reshape(B, C, -1)
+
+    def _decode_logits(self, a: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One batched decode step: ``tokens [B, 1]`` at ``pos [B]``;
+        table [B, pps], lens [B] including the new token.  Logits
+        ``[B, V]``."""
+        cfg = self.cfg
+        B = a["tokens"].shape[0]
+
+        def attend(q, kp, vp, ks, vs):
+            return paged_attention(q[:, 0], kp, vp, a["table"], a["lens"],
+                                   k_scales=ks, v_scales=vs
+                                   ).reshape(B, 1, -1)
+
+        return self._forward(a["tokens"], a["pos"][:, None], a["page_idx"],
+                             a["page_off"], attend)[:, 0]
+
+    def _chunk_logits(self, a: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One sequence's padded chunk: ``tokens/pos [C]``, table [pps],
+        ``ctx``/``start`` [1] (tokens in pages incl. this chunk's valid
+        ones; position of chunk row 0).  Logits ``[C, V]``."""
+        C = a["tokens"].shape[0]
+
+        def attend(q, kp, vp, ks, vs):
+            return paged_prefill_attention(
+                q[0], kp, vp, a["table"], a["ctx"], a["start"],
+                k_scales=ks, v_scales=vs).reshape(1, C, -1)
+
+        return self._forward(a["tokens"][None], a["pos"][None],
+                             a["page_idx"], a["page_off"], attend)[0]
 
     def _ragged_sample_step(self, a: Dict[str, torch.Tensor], prev_tokens,
                             *, vocab: int, n_top: int, use_planes: bool,
@@ -380,14 +477,107 @@ class PagedModelRunner:
         """Tokens currently stored in the sequence's pages."""
         return self.pm.seqs[sid].length
 
+    def _logits_to_host(self, logits: torch.Tensor) -> np.ndarray:
+        """Pull logit rows ``[n, V]`` to the host as f32 (a blocking
+        copy), counted by ``host_logit_rows``/``host_sync_bytes``."""
+        out = logits.float().cpu().numpy()
+        self.host_logit_rows += out.shape[0]
+        self.host_sync_bytes += out.nbytes
+        return out
+
     def prefill_chunk(self, sid: int, tokens: List[int]) -> np.ndarray:
-        raise NotImplementedError(_PER_KIND)
+        """Prefill up to ``chunk_size`` consecutive prompt tokens through
+        the chunked-prefill kernel; a partial final chunk is padded to
+        ``chunk_size`` (pad rows write to the trash page).  Raises
+        :class:`OutOfPages` before mutating sequence state when the pool
+        cannot back the chunk.  Returns the last valid token's logits
+        ``[V]``."""
+        tokens = [int(t) for t in tokens]
+        T = len(tokens)
+        C = self.chunk_size
+        assert 0 < T <= C, (T, C)
+        alloc = self.pm.seqs[sid]
+        start = alloc.length
+        need_pages = -(-(start + T) // self.page_size)
+        if need_pages > self.pm.pages_per_seq:
+            raise OutOfPages(f"seq {sid} at pages_per_seq cap")
+        self.pm.require_pages(max(0, need_pages - len(alloc.pages)))
+        self.pm.append_tokens(sid, T)
+        pages = alloc.pages
+        pos = (start + np.arange(C)).astype(np.int32)
+        page_idx = np.full(C, self.trash_page, np.int32)
+        page_idx[:T] = [pages[p // self.page_size] for p in pos[:T]]
+        tok = np.zeros(C, np.int32)
+        tok[:T] = tokens
+        a = self._staging.upload(dict(
+            tokens=tok, pos=pos, table=self.pm.page_table([sid])[0],
+            ctx=np.array([start + T], np.int32),
+            start=np.array([start], np.int32), page_idx=page_idx,
+            page_off=(pos % self.page_size).astype(np.int32)))
+        logits = self._chunk_logits(a)
+        self.seq_tokens[sid].extend(tokens)
+        self.n_prefill_chunks += 1
+        self.n_prefill_tokens += T
+        self.step_log.append(("chunk", T))
+        out = self._logits_to_host(logits[T - 1:T])[0]
+        self._last_logits_np = out
+        return out
 
     def prefill_seq(self, prompt_ids: List[int]) -> int:
-        raise NotImplementedError(_PER_KIND)
+        """Prefill a whole prompt: ``begin_seq`` (prefix-cache adoption)
+        then a loop of ``prefill_chunk`` over the uncached suffix.
+        Returns seq_id; ``last_prefill_logits()`` has the final logits."""
+        prompt_ids = [int(t) for t in prompt_ids]
+        sid = self.begin_seq(prompt_ids)
+        done = self.seq_len(sid)
+        try:
+            while done < len(prompt_ids):
+                n = min(self.chunk_size, len(prompt_ids) - done)
+                self.prefill_chunk(sid, prompt_ids[done:done + n])
+                done += n
+        except Exception:
+            self.free(sid)
+            raise
+        return sid
+
+    def last_prefill_logits(self) -> np.ndarray:
+        return self._last_logits_np
 
     def decode(self, seq_tokens: Dict[int, int]) -> Dict[int, np.ndarray]:
-        raise NotImplementedError(_PER_KIND)
+        """One batched decode step for ``{seq_id: token}`` through the
+        decode kernel; returns ``{seq_id: logits [V]}``."""
+        sids = sorted(seq_tokens)
+        B = len(sids)
+        # capacity pre-check: fail *before* touching any sequence state so
+        # the engine can preempt and retry without corrupted bookkeeping
+        growing = sum(1 for s in sids
+                      if self.pm.seqs[s].length % self.page_size == 0
+                      and self.pm.seqs[s].length // self.page_size
+                      == len(self.pm.seqs[s].pages))
+        self.pm.require_pages(growing)
+        for s in sids:
+            if -(-(self.pm.seqs[s].length + 1) // self.page_size) \
+                    > self.pm.pages_per_seq:
+                raise OutOfPages(f"seq {s} at pages_per_seq cap")
+        pos = self.pm.context_lens(sids)               # write position
+        for sid in sids:
+            self.pm.append_tokens(sid, 1)
+        a = self._staging.upload(dict(
+            tokens=np.array([[seq_tokens[s]] for s in sids], np.int32),
+            pos=pos.astype(np.int32), table=self.pm.page_table(sids),
+            lens=self.pm.context_lens(sids),           # incl. the new token
+            page_idx=np.array([self.pm.seqs[s].pages[p // self.page_size]
+                               for s, p in zip(sids, pos)], np.int32),
+            page_off=(pos % self.page_size).astype(np.int32)))
+        logits = self._decode_logits(a)
+        for s in sids:
+            if s in self.seq_tokens:
+                self.seq_tokens[s].append(int(seq_tokens[s]))
+        self.n_decode_steps += 1
+        self.n_decode_tokens += B
+        self.step_log.append(("decode", B))
+        out = self._logits_to_host(logits)
+        return {s: out[i] for i, s in enumerate(sids)}
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -493,10 +683,8 @@ class PagedModelRunner:
                 last = torch.from_numpy(
                     np.clip(lengths - 1, 0, Cb - 1).astype(np.int64)
                 ).to(self.device)
-                out = logits[torch.arange(Bb, device=self.device), last] \
-                    .float().cpu().numpy()
-                self.host_logit_rows += B
-                self.host_sync_bytes += out[:B].nbytes
+                out = self._logits_to_host(
+                    logits[torch.arange(B, device=self.device), last[:B]])
         n_dec = n_pf = 0
         result: Dict[int, np.ndarray] = {}
         for b, (sid, toks, kind) in enumerate(rows):
@@ -618,10 +806,12 @@ class PagedModelRunner:
         return sid
 
     def _copy_page(self, src: int, dst: int):
-        """Copy one physical page's K/V payload across every layer, in
-        place."""
-        self.k_pages[:, dst].copy_(self.k_pages[:, src])
-        self.v_pages[:, dst].copy_(self.v_pages[:, src])
+        """Copy one physical page's K/V payload (values AND dequant
+        scales, when quantized) across every layer, in place."""
+        for pool in (self.k_pages, self.v_pages, self.k_scales,
+                     self.v_scales):
+            if pool is not None:
+                pool[:, dst].copy_(pool[:, src])
 
     def rewind_tokens(self, sid: int, n: int = 1):
         """Un-append the last ``n`` tokens of a live sequence (lag-1
@@ -741,9 +931,8 @@ class PagedModelRunner:
 
     def stats(self) -> dict:
         """Runner counters.  ``attn_kernel_calls`` counts attention
-        dispatches — one per fused ragged step (the per-kind calls are
-        not ported, so their counts stay 0); the engine path issues
-        exactly one per step."""
+        dispatches (fused ragged steps + per-kind chunk and decode
+        calls); the engine path issues exactly one per step."""
         out = {"pages": self.pm.stats(),
                "device": str(self.device),
                "kv_dtype": self.kv_dtype,
@@ -815,7 +1004,13 @@ class PagedEngineBackend:
 
     def prefill(self, slot: int, prompt_ids: List[int],
                 embeds: Optional[np.ndarray] = None) -> np.ndarray:
-        raise NotImplementedError(_PER_KIND)
+        """Whole-prompt prefill (a loop of chunks) for callers that do
+        not interleave; the engine uses the chunked calls."""
+        assert embeds is None, "paged backend: vision embeds unsupported"
+        assert slot not in self._slot_seq, f"slot {slot} already bound"
+        sid = self.runner.prefill_seq(prompt_ids)
+        self._slot_seq[slot] = sid
+        return self.runner.last_prefill_logits()
 
     def begin_prefill(self, slot: int, prompt_ids: List[int]) -> int:
         """Open ``slot`` for chunked prefill; adopts the longest cached
@@ -826,7 +1021,9 @@ class PagedEngineBackend:
         return self.runner.seq_len(sid)
 
     def prefill_chunk(self, slot: int, tokens: List[int]) -> np.ndarray:
-        raise NotImplementedError(_PER_KIND)
+        """Append one chunk of prompt tokens to ``slot``'s sequence;
+        returns the last token's logits."""
+        return self.runner.prefill_chunk(self._slot_seq[slot], tokens)
 
     def run_step(self, rows: List[Tuple[int, List[int], str]],
                  sampling: Optional[SamplingParamsBatch] = None,
@@ -865,7 +1062,10 @@ class PagedEngineBackend:
 
     def decode(self, tokens_by_slot: Dict[int, int],
                pos_by_slot: Dict[int, int]) -> Dict[int, np.ndarray]:
-        raise NotImplementedError(_PER_KIND)
+        del pos_by_slot                    # positions tracked by PageManager
+        seq_tok = {self._slot_seq[s]: t for s, t in tokens_by_slot.items()}
+        out = self.runner.decode(seq_tok)
+        return {s: out[self._slot_seq[s]] for s in tokens_by_slot}
 
     def release(self, slot: int, publish: bool = True):
         sid = self._slot_seq.pop(slot, None)

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "rmsnorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
     "paged_ragged_attention_bf16": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "paged_ragged_attention_int8": [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                    _P],
+    "w4a16_gemm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

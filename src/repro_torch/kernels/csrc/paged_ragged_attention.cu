@@ -1,12 +1,20 @@
-// Ragged multi-sequence paged attention for Hopper (bf16 pages).
+// Ragged multi-sequence paged attention for Hopper, over bf16 or int8
+// pages.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/paged_attention.py::paged_ragged_attention
-// (`_ragged_kernel`): one launch covers a whole engine step's mixed batch
-// of decode rows (C = 1 valid token) and prefill chunks.
+// (`_ragged_kernel`), both forms: one launch covers a whole engine step's
+// mixed batch of decode rows (C = 1 valid token) and prefill chunks.  The
+// decode (`paged_attention`, `_kernel`) and chunked-prefill
+// (`paged_prefill_attention`, `_prefill_kernel`) TPU kernels are the same
+// computation with C = 1 (starts = contexts - 1) and with B = 1; their
+// wrappers launch this kernel with those index tensors.
 //
 //   q           [B, C, H, D] bf16, read through its strides (stride(-1) = 1)
-//   k/v pages   [P, page_size, Kv, D] bf16 (one layer's pool, contiguous)
+//   k/v pages   [P, page_size, Kv, D] bf16 or int8 (one layer's pool,
+//               contiguous)
+//   k/v scales  [P, page_size, Kv] bf16, int8 form only: key/value t of
+//               kv-head h is pages[..t, h, :] * scales[..t, h]
 //   page_tables [B, pps] int32, contexts [B] int32, starts [B] int32
 //   out         [B, C, H, D] bf16, contiguous
 //
@@ -21,7 +29,12 @@
 // a block owns 32 query rows r = c*G + g of one (row, kv-head), stages each
 // K and V page tile [page_size, D] in shared memory with 16-byte loads, and
 // each warp carries 4 query rows' online softmax (m, l, acc[D]) in
-// registers, lane i owning D/32 consecutive head-dim elements.  The page
+// registers, lane i owning D/32 consecutive head-dim elements.  An int8
+// page tile is half the bytes of a bf16 one (2 KB at D=128, page 16, 16
+// values per 16-byte load); its page_size scales per kv-head are staged
+// beside it, and the dequant (value * scale, f32) happens at the
+// shared-to-register step, as the TPU kernel rescales its VMEM tile: no
+// f32 or bf16 copy of the pool is written anywhere.  The page
 // loop stops at ceil(min(contexts[b], last query position + 1) / page_size),
 // so it never reads a page-table entry past the live context (unused
 // entries are 0, and page 0 is a live page).
@@ -46,20 +59,37 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* v) {
   }
 }
 
-template <int D, int PS>
+// One key/value row's E elements of this lane, in f32.
+template <int E>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float s,
+                                         float* v) {
+  load_bf16<E>(p, v);
+}
+
+template <int E>
+__device__ __forceinline__ void load_row(const int8_t* p, float s, float* v) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = (float)p[e] * s;
+}
+
+template <typename T, int D, int PS>
 __global__ void __launch_bounds__(kWarps * 32)
 ragged_kernel(const __nv_bfloat16* __restrict__ q, long long sB, long long sC,
-              long long sH, const __nv_bfloat16* __restrict__ k_pages,
-              const __nv_bfloat16* __restrict__ v_pages,
+              long long sH, const T* __restrict__ k_pages,
+              const T* __restrict__ v_pages,
+              const __nv_bfloat16* __restrict__ k_scales,
+              const __nv_bfloat16* __restrict__ v_scales,
               const int* __restrict__ page_tables,
               const int* __restrict__ contexts, const int* __restrict__ starts,
               __nv_bfloat16* __restrict__ out, int C, int H, int Kv, int pps,
               float scale) {
+  constexpr bool kQuant = sizeof(T) == 1;
   constexpr int E = D / 32;             // head-dim elements per lane
-  constexpr int VEC = 8;                // bf16 per 16-byte load
+  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int TILE_VECS = PS * D / VEC;
-  __shared__ __align__(16) __nv_bfloat16 k_s[PS * D];
-  __shared__ __align__(16) __nv_bfloat16 v_s[PS * D];
+  __shared__ __align__(16) T k_s[PS * D];
+  __shared__ __align__(16) T v_s[PS * D];
+  __shared__ float ks_s[kQuant ? PS : 1], vs_s[kQuant ? PS : 1];
 
   const int b = blockIdx.x, kv = blockIdx.y;
   const int G = H / Kv;
@@ -111,13 +141,18 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, long long sB, long long sC,
       reinterpret_cast<uint4*>(v_s)[i] =
           *reinterpret_cast<const uint4*>(v_pages + src);
     }
+    if (kQuant && threadIdx.x < PS) {
+      const long long si = (page * PS + threadIdx.x) * Kv + kv;
+      ks_s[threadIdx.x] = __bfloat162float(k_scales[si]);
+      vs_s[threadIdx.x] = __bfloat162float(v_scales[si]);
+    }
     __syncthreads();
 
     float s[kRowsPerWarp][PS];
 #pragma unroll
     for (int t = 0; t < PS; ++t) {
       float kt[E];
-      load_bf16<E>(k_s + t * D + lane * E, kt);
+      load_row<E>(k_s + t * D + lane * E, kQuant ? ks_s[t] : 1.f, kt);
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) {
         float d = 0.f;
@@ -155,7 +190,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, long long sB, long long sC,
 #pragma unroll
     for (int t = 0; t < PS; ++t) {
       float vt[E];
-      load_bf16<E>(v_s + t * D + lane * E, vt);
+      load_row<E>(v_s + t * D + lane * E, kQuant ? vs_s[t] : 1.f, vt);
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j) {
 #pragma unroll
@@ -179,43 +214,72 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, long long sB, long long sC,
   }
 }
 
-template <int D, int PS>
+template <typename T, int D, int PS>
 int launch(const void* q, long long sB, long long sC, long long sH,
-           const void* k_pages, const void* v_pages, const int* page_tables,
-           const int* contexts, const int* starts, void* out, int B, int C,
-           int H, int Kv, int pps, float scale, cudaStream_t stream) {
+           const void* k_pages, const void* v_pages, const void* k_scales,
+           const void* v_scales, const int* page_tables, const int* contexts,
+           const int* starts, void* out, int B, int C, int H, int Kv, int pps,
+           float scale, cudaStream_t stream) {
   const int G = H / Kv;
   dim3 grid(B, Kv, (C * G + kTileRows - 1) / kTileRows);
-  ragged_kernel<D, PS><<<grid, kWarps * 32, 0, stream>>>(
-      (const __nv_bfloat16*)q, sB, sC, sH, (const __nv_bfloat16*)k_pages,
-      (const __nv_bfloat16*)v_pages, page_tables, contexts, starts,
+  ragged_kernel<T, D, PS><<<grid, kWarps * 32, 0, stream>>>(
+      (const __nv_bfloat16*)q, sB, sC, sH, (const T*)k_pages,
+      (const T*)v_pages, (const __nv_bfloat16*)k_scales,
+      (const __nv_bfloat16*)v_scales, page_tables, contexts, starts,
       (__nv_bfloat16*)out, C, H, Kv, pps, scale);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Supported: D in {64, 128}, page_size in {8, 16}, H % Kv == 0.
-// Strides are in elements.  Returns cudaGetLastError() after the launch.
-extern "C" int paged_ragged_attention_bf16(
-    const void* q, long long sB, long long sC, long long sH,
-    const void* k_pages, const void* v_pages, const void* page_tables,
-    const void* contexts, const void* starts, void* out, int B, int C, int H,
-    int Kv, int D, int page_size, int pps, float scale, void* stream) {
+template <typename T>
+int dispatch(const void* q, long long sB, long long sC, long long sH,
+             const void* k_pages, const void* v_pages, const void* k_scales,
+             const void* v_scales, const void* page_tables,
+             const void* contexts, const void* starts, void* out, int B,
+             int C, int H, int Kv, int D, int page_size, int pps, float scale,
+             void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (Kv <= 0 || H % Kv != 0) return (int)cudaErrorInvalidValue;
   const int* pt = (const int*)page_tables;
   const int* cx = (const int*)contexts;
   const int* st = (const int*)starts;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_RAGGED_CASE(DD, PP)                                          \
-  if (D == DD && page_size == PP)                                          \
-    return launch<DD, PP>(q, sB, sC, sH, k_pages, v_pages, pt, cx, st, out, \
-                          B, C, H, Kv, pps, scale, s);
+#define REPRO_RAGGED_CASE(DD, PP)                                            \
+  if (D == DD && page_size == PP)                                            \
+    return launch<T, DD, PP>(q, sB, sC, sH, k_pages, v_pages, k_scales,      \
+                             v_scales, pt, cx, st, out, B, C, H, Kv, pps,    \
+                             scale, s);
   REPRO_RAGGED_CASE(128, 16)
   REPRO_RAGGED_CASE(128, 8)
   REPRO_RAGGED_CASE(64, 16)
   REPRO_RAGGED_CASE(64, 8)
 #undef REPRO_RAGGED_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Supported: D in {64, 128}, page_size in {8, 16}, H % Kv == 0.
+// Strides are in elements.  Each returns cudaGetLastError() after the
+// launch.
+extern "C" int paged_ragged_attention_bf16(
+    const void* q, long long sB, long long sC, long long sH,
+    const void* k_pages, const void* v_pages, const void* page_tables,
+    const void* contexts, const void* starts, void* out, int B, int C, int H,
+    int Kv, int D, int page_size, int pps, float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, sB, sC, sH, k_pages, v_pages, nullptr,
+                                 nullptr, page_tables, contexts, starts, out,
+                                 B, C, H, Kv, D, page_size, pps, scale,
+                                 stream);
+}
+
+// int8 pages with bf16 per-(token, kv-head) scales [P, page_size, Kv].
+extern "C" int paged_ragged_attention_int8(
+    const void* q, long long sB, long long sC, long long sH,
+    const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* page_tables, const void* contexts,
+    const void* starts, void* out, int B, int C, int H, int Kv, int D,
+    int page_size, int pps, float scale, void* stream) {
+  return dispatch<int8_t>(q, sB, sC, sH, k_pages, v_pages, k_scales,
+                          v_scales, page_tables, contexts, starts, out, B, C,
+                          H, Kv, D, page_size, pps, scale, stream);
 }

@@ -1,6 +1,7 @@
 """Q/K/V projections and QK-norm of the fused step.
 
 Port of ``src/repro/models/attention.py::_project`` and ``_qk_norm``.
+Projections go through ``qdot`` (the W4A16 GEMM for packed weights).
 Attention itself is ``repro_torch.kernels.paged_attention``.
 """
 from __future__ import annotations
@@ -9,6 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm
+from repro_torch.quant.int4 import qdot
 
 NEG_INF = -1e30
 
@@ -16,7 +18,7 @@ NEG_INF = -1e30
 def _project(cfg: ModelConfig, p: dict, x: torch.Tensor, which: str,
              n_heads: int) -> torch.Tensor:
     """x [B, S, D] @ w{which} (+ bias) -> [B, S, n_heads, head_dim]."""
-    y = x @ p["w" + which]
+    y = qdot(x, p["w" + which])
     if cfg.qkv_bias and ("b" + which) in p:
         y = y + p["b" + which]
     B, S = x.shape[:2]

@@ -1,9 +1,10 @@
 """Layer math of the fused step: norms, rope, activations, gated MLP.
 
 Port of ``src/repro/models/layers.py`` (``rmsnorm``, ``rope_freqs``,
-``apply_rope``, ``act_fn``, ``gated``, ``mlp``).  Matrix products are
-``torch.matmul`` in the weights' dtype (bf16), as XLA computes them
-outside any Pallas kernel in the reference.  On a CUDA tensor
+``apply_rope``, ``act_fn``, ``gated``, ``mlp``).  The MLP's products go
+through ``qdot``: ``torch.matmul`` in the weights' dtype (bf16) for
+plain weights, as XLA computes them outside any Pallas kernel in the
+reference, and the W4A16 GEMM kernel for packed ones.  On a CUDA tensor
 :func:`rmsnorm` runs the hand-written kernel of
 ``repro_torch.kernels.rmsnorm``.
 """
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
+from repro_torch.quant.int4 import qdot
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
@@ -63,5 +65,5 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     @ wo + bo``."""
     f = act_fn(act)
     if gated(act):
-        return (f(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
-    return f(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
+        return qdot(f(qdot(x, p["wg"])) * qdot(x, p["wi"]), p["wo"])
+    return qdot(f(qdot(x, p["wi"]) + p["bi"]), p["wo"]) + p["bo"]

@@ -16,7 +16,7 @@ through ``repro_torch.weights.from_jax_params``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -29,14 +29,19 @@ class ParamDef:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"          # normal | zeros | ones
     scale: float = 0.02           # stddev for normal
+    #: logical axis name per dim (the reference's sharding names); the
+    #: W4A16 group choice reads whether the contraction axis is sharded
+    axes: Tuple[Optional[str], ...] = ()
 
 
-def linear(din: int, dout: int) -> ParamDef:
-    return ParamDef((din, dout), torch.bfloat16, "normal", 0.02)
+def linear(din: int, dout: int, in_ax: Optional[str],
+           out_ax: Optional[str]) -> ParamDef:
+    return ParamDef((din, dout), torch.bfloat16, "normal", 0.02,
+                    axes=(in_ax, out_ax))
 
 
 def norm_scale(d: int) -> ParamDef:
-    return ParamDef((d,), torch.float32, "ones")
+    return ParamDef((d,), torch.float32, "ones", axes=(None,))
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
@@ -49,11 +54,14 @@ def paged_supported(cfg: ModelConfig) -> bool:
 def _layer_def(cfg: ModelConfig) -> dict:
     d, q_dim, kv_dim = cfg.d_model, cfg.q_dim, cfg.kv_dim
     return {"mixer_norm": norm_scale(d),
-            "attn": {"wq": linear(d, q_dim), "wk": linear(d, kv_dim),
-                     "wv": linear(d, kv_dim), "wo": linear(q_dim, d)},
+            "attn": {"wq": linear(d, q_dim, "d_model", "heads_flat"),
+                     "wk": linear(d, kv_dim, "d_model", "kv_flat"),
+                     "wv": linear(d, kv_dim, "d_model", "kv_flat"),
+                     "wo": linear(q_dim, d, "heads_flat", "d_model")},
             "ffn_norm": norm_scale(d),
-            "ffn": {"wi": linear(d, cfg.d_ff), "wg": linear(d, cfg.d_ff),
-                    "wo": linear(cfg.d_ff, d)}}
+            "ffn": {"wi": linear(d, cfg.d_ff, "d_model", "d_ff"),
+                    "wg": linear(d, cfg.d_ff, "d_model", "d_ff"),
+                    "wo": linear(cfg.d_ff, d, "d_ff", "d_model")}}
 
 
 def params_def(cfg: ModelConfig) -> Dict[str, Any]:
@@ -66,12 +74,13 @@ def params_def(cfg: ModelConfig) -> Dict[str, Any]:
             "gated MLP only (other model families: ROADMAP A6)")
     V, D = cfg.vocab_size, cfg.d_model
     defs: Dict[str, Any] = {
-        "embed": ParamDef((V, D), torch.bfloat16, "normal", 0.02),
+        "embed": ParamDef((V, D), torch.bfloat16, "normal", 0.02,
+                          axes=("vocab", "d_model")),
         "final_norm": norm_scale(D),
         "layers": [_layer_def(cfg) for _ in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = linear(D, V)
+        defs["lm_head"] = linear(D, V, "d_model", "vocab")
     return defs
 
 

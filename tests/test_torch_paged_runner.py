@@ -185,22 +185,17 @@ def test_out_of_pages_before_any_mutation():
     assert r.stats()["ragged_steps"] == 0
 
 
-def test_per_kind_paths_name_their_roadmap_item():
-    r = PagedModelRunner(CFG, None, device="cpu", **KW)
-    sid = r.begin_seq([1, 2])
-    for call in (lambda: r.decode({sid: 1}),
-                 lambda: r.prefill_chunk(sid, [1]),
-                 lambda: r.prefill_seq([1, 2])):
-        with pytest.raises(NotImplementedError, match="A2"):
-            call()
-
-
-def test_warmup_touches_no_state():
-    r = PagedModelRunner(CFG, None, device="cpu", **KW)
-    k0 = r.k_pages.clone()
+@pytest.mark.parametrize("quant", [{}, dict(kv_dtype="int8",
+                                              weight_quant="w4a16")])
+def test_warmup_touches_no_state(quant):
+    r = PagedModelRunner(CFG, None, device="cpu", **KW, **quant)
+    pools = [p for p in (r.k_pages, r.v_pages, r.k_scales, r.v_scales)
+             if p is not None]
+    before = [p.clone() for p in pools]
     n = r.warmup(CFG.vocab_size, draft_k=2)
     assert n > 0 and r.stats()["warmup_compiles"] == n
     assert r.stats()["ragged_steps"] == 0
-    # only the trash page may have been written
-    assert bool((r.k_pages[:, :r.trash_page] == k0[:, :r.trash_page]).all())
+    # only the trash page (values and scales) may have been written
+    for p, p0 in zip(pools, before):
+        assert torch.equal(p[:, :r.trash_page], p0[:, :r.trash_page])
     assert r.warmup(CFG.vocab_size, draft_k=2) == 0     # all seen

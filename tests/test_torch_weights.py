@@ -152,8 +152,6 @@ def test_load_model_without_device_raises_on_cpu_only_box():
 @pytest.mark.parametrize("kw,item", [
     (dict(backend="dense"), "A4"),
     (dict(quantize=True), "A4"),
-    (dict(kv_dtype="int8"), "A1"),
-    (dict(weight_quant="w4a16"), "A3"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
     kw = dict(dict(backend="paged"), **kw)
